@@ -1,0 +1,127 @@
+"""Test-time adaptation — the DynaVSR product loop (port of
+dynavsr_tpu/adapt/adaptation.py, grad_stats mode: EDVR has no BN).
+
+Per clip: copy the meta weights, take k optimizer steps on the
+self-supervised pseudo-task (SLR window = MFDN(LR window) -> LR centre),
+then run the adapted net over every sliding window of the clip.
+
+Where the JAX functions take `params`, these take the module that holds
+them. Every clip starts from a fresh deep copy of that module and a fresh
+optimizer: JAX's functional update cannot leak one clip's adaptation into
+the next, and an in-place torch loop would unless it copies.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from dynavsr_tpu_torch.train.losses import charbonnier_loss
+
+__all__ = ["AdaptConfig", "chunked_apply", "make_adapt_fn", "make_adapt_and_infer",
+           "make_adapt_and_infer_seq", "seq_forward"]
+
+
+@dataclasses.dataclass
+class AdaptConfig:
+    n_steps: int = 5
+    lr: float = 1e-6
+    optimizer: str = "adam"  # the only one the test configs use
+    reduction: str = "mean"
+    infer_chunk: int = 0  # 0 = all windows in one batch
+
+
+def chunked_apply(apply: Callable, windows: torch.Tensor, chunk: int) -> torch.Tensor:
+    """apply() over (F, ...) windows, `chunk` rows per call to bound live
+    activation memory; chunk=0 or chunk >= F runs one batch. Rows are
+    independent, so the last chunk may be short (the JAX version pads it)."""
+    if not chunk or chunk >= windows.shape[0]:
+        return apply(windows)
+    return torch.cat([apply(windows[s: s + chunk])
+                      for s in range(0, windows.shape[0], chunk)], dim=0)
+
+
+def _make_opt(cfg: AdaptConfig, params) -> torch.optim.Optimizer:
+    if cfg.optimizer != "adam":
+        raise NotImplementedError(f"adapt optimizer {cfg.optimizer!r} is not ported; use adam")
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)  # optax.adam
+
+
+def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Callable:
+    """adapt(meta_model, slr_windows, lr_centers) -> (adapted_model, losses).
+
+    apply_fn(model, x) overrides model(x), e.g. the mod-padded apply of
+    models/padding.py. losses (n_steps,) are taken before each update, as
+    jax.value_and_grad gives them."""
+    apply = apply_fn or (lambda m, x: m(x))
+
+    def adapt(meta_model, slr_windows, lr_centers):
+        model = copy.deepcopy(meta_model)
+        opt = _make_opt(cfg, model.parameters())
+        losses = []
+        for _ in range(cfg.n_steps):
+            opt.zero_grad(set_to_none=True)
+            loss = charbonnier_loss(apply(model, slr_windows), lr_centers,
+                                    reduction=cfg.reduction)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        out = torch.stack(losses) if losses else torch.zeros(0, device=lr_centers.device)
+        return model, out
+
+    return adapt
+
+
+def make_adapt_and_infer(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Callable:
+    """run(meta_model, slr_windows, lr_centers, lr_windows) -> (sr, losses).
+
+    slr_windows (K, N, h/s, w/s, 3) adaptation inputs (from MFDN);
+    lr_centers (K, h, w, 3) their targets; lr_windows (F, N, h, w, 3)
+    every sliding window of the clip. sr: (F, H, W, 3)."""
+    adapt = make_adapt_fn(cfg, apply_fn)
+    apply = apply_fn or (lambda m, x: m(x))
+
+    def run(meta_model, slr_windows, lr_centers, lr_windows):
+        adapted, losses = adapt(meta_model, slr_windows, lr_centers)
+        with torch.no_grad():
+            sr = chunked_apply(lambda w: apply(adapted, w), lr_windows, cfg.infer_chunk)
+        return sr, losses
+
+    return run
+
+
+def make_adapt_and_infer_seq(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Callable:
+    """Sequence-mode adapt+infer: the same adaptation, then
+    EDVR.forward_seq semantics for inference.
+
+    run(meta_model, slr_windows, lr_centers, frames, win_idx):
+      frames (T, h, w, 3) the clip, already mod-4 padded by the caller;
+      win_idx (F, N) sliding-window indices (data/windows.all_windows).
+    apply_fn drives only the adaptation pseudo-task."""
+    adapt = make_adapt_fn(cfg, apply_fn)
+
+    def run(meta_model, slr_windows, lr_centers, frames, win_idx):
+        adapted, losses = adapt(meta_model, slr_windows, lr_centers)
+        with torch.no_grad():
+            sr = seq_forward(adapted, frames, win_idx, cfg.infer_chunk)
+        return sr, losses
+
+    return run
+
+
+def seq_forward(model, frames: torch.Tensor, win_idx: torch.Tensor,
+                infer_chunk: int = 0) -> torch.Tensor:
+    """Per-frame pyramids extracted once for the (T, H, W, 3) clip, gathered
+    per (F, N) window row for PCD + fusion; infer_chunk bounds the fusion
+    stage. Exact against the window-batched forward."""
+    l1, l2, l3 = model.extract_pyramid(frames)
+    n = win_idx.shape[1]
+    center = n // 2 if model.center is None else model.center
+
+    def fuse(idx):
+        return model.fuse_pyramid(l1[idx], l2[idx], l3[idx], frames[idx[:, center]])
+
+    return chunked_apply(fuse, win_idx, infer_chunk)

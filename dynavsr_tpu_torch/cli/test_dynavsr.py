@@ -1,0 +1,203 @@
+"""DynaVSR adaptation eval (port of dynavsr_tpu/cli/test_dynavsr.py).
+
+Per clip: MFDN turns the adaptation windows into SLR windows, the VSR net
+takes k adaptation steps on (SLR window -> LR centre), then slides over
+the clip (window-batched, or sequence mode with `adapt.seq: true`), and
+the frames are scored.
+
+    python -m dynavsr_tpu_torch.cli.test_dynavsr -opt configs/test/test_DynaVSR_Vid4.yml
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os.path as osp
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dynavsr_tpu_torch.adapt.adaptation import (
+    AdaptConfig,
+    make_adapt_and_infer,
+    make_adapt_and_infer_seq,
+)
+from dynavsr_tpu_torch.data.windows import all_windows
+from dynavsr_tpu_torch.device import resolve_device
+from dynavsr_tpu_torch.eval.harness import score_frames
+from dynavsr_tpu_torch.models.downscaler import MFDN
+from dynavsr_tpu_torch.models.edvr import EDVR
+from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
+
+__all__ = ["run_clip", "build_edvr", "build_mfdn", "adapt_config", "main"]
+
+logger = logging.getLogger("dynavsr_tpu_torch")
+
+
+def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfig, *,
+             seq: bool, n_frames: int, padding: str, n_adapt: int, scale: int = 4,
+             ycbcr: bool = True, crop_border: int = 0, save_dir: Optional[str] = None,
+             device=None) -> Tuple[np.ndarray, dict]:
+    """Adapt `vsr` (a copy of it) to one clip and super-resolve the clip.
+
+    lq (T, h, w, 3) / gt (T, H, W, 3) float in [0, 1]. The work runs on
+    `device` (default: cuda; see device.resolve_device), where vsr and est
+    must already be (build_edvr / build_mfdn with the same device). Returns
+    (sr (T, H, W, 3), scores), with the per-step adaptation losses under
+    scores['adapt_losses']."""
+    device = resolve_device(device)
+    for name, module in (("vsr", vsr), ("est", est)):
+        on = next(module.parameters()).device
+        if on != device:
+            raise ValueError(f"{name} is on {on}, but the clip runs on {device}: "
+                             f"build it with device={str(device)!r}")
+    t, h, w = lq.shape[:3]
+    win = all_windows(t, n_frames, padding)
+    apply = make_model_apply("EDVR", scale)
+    adapt_windows = torch.as_tensor(lq[win[: min(n_adapt, t)]], device=device)
+    with torch.no_grad():
+        slr_windows = est(adapt_windows)
+    lr_centers = adapt_windows[:, n_frames // 2]
+    if seq:
+        # Mod-pad the clip once: the same math as padding each window.
+        mod = arch_mod("EDVR")
+        ph, pw = (-h) % mod, (-w) % mod
+        frames = np.pad(lq, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="reflect") \
+            if ph or pw else lq
+        run = make_adapt_and_infer_seq(cfg, apply_fn=apply)
+        sr, losses = run(vsr, slr_windows, lr_centers, torch.as_tensor(frames, device=device),
+                         torch.as_tensor(win, dtype=torch.long, device=device))
+        sr = sr[:, : h * scale, : w * scale]
+    else:
+        run = make_adapt_and_infer(cfg, apply_fn=apply)
+        sr, losses = run(vsr, slr_windows, lr_centers, torch.as_tensor(lq[win], device=device))
+    sr = sr.cpu().numpy()
+    res = score_frames(sr, gt, ycbcr=ycbcr, crop_border=crop_border, save_dir=save_dir)
+    res["adapt_losses"] = losses.cpu().tolist()
+    return sr, res
+
+
+_DTYPES = {None: None, "float32": None, "fp32": None,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def build_edvr(opt_net, device=None) -> EDVR:
+    """EDVR from a `network_G` config block (models/networks.py:define_G),
+    on `device` (default: cuda)."""
+    device = resolve_device(device)
+    if opt_net.get("which_model_G") != "EDVR":
+        raise NotImplementedError(
+            f"{opt_net.get('which_model_G')} is not ported yet (ROADMAP: TOF, DUF)")
+    if opt_net.get("s2d_conv"):
+        raise NotImplementedError("network_G.s2d_conv is not ported yet (ROADMAP: conv_s2d)")
+    if opt_net.get("dtype") not in _DTYPES:
+        raise ValueError(f"unknown network dtype {opt_net.get('dtype')!r}")
+    return EDVR(
+        nf=opt_net.get("nf", 64), nframes=opt_net.get("nframes", 5),
+        groups=opt_net.get("groups", 8), front_RBs=opt_net.get("front_RBs", 5),
+        back_RBs=opt_net.get("back_RBs", 10), center=opt_net.get("center"),
+        predeblur=bool(opt_net.get("predeblur", False)),
+        hr_in=bool(opt_net.get("HR_in", False)),
+        w_TSA=opt_net.get("w_TSA", True) is not False,
+        dtype=_DTYPES[opt_net.get("dtype")]).to(device)
+
+
+def build_mfdn(opt_est, scale: int, nframes: int, device=None) -> MFDN:
+    """MFDN from a `network_E` config block, on `device` (default: cuda),
+    in eval mode."""
+    device = resolve_device(device)
+    if (opt_est.get("which_model_G") or "MFDN") != "MFDN":
+        raise NotImplementedError(
+            f"{opt_est.get('which_model_G')} is not ported yet (ROADMAP: SFDN)")
+    return MFDN(scale=scale, nf=opt_est.get("nf", 64), nframes=nframes).to(device).eval()
+
+
+def adapt_config(a) -> AdaptConfig:
+    """AdaptConfig from an `adapt` block; explicit zeros are kept."""
+    ic = a.get("infer_chunk")
+    return AdaptConfig(
+        n_steps=5 if a.get("n_steps") is None else int(a["n_steps"]),
+        lr=1e-6 if a.get("lr") is None else float(a["lr"]),
+        optimizer=a.get("optimizer") or "adam",
+        infer_chunk=8 if ic is None else int(ic),
+    )
+
+
+def _load_pth(model: torch.nn.Module, path: Optional[str]) -> None:
+    if not path:
+        logger.warning("no checkpoint for %s: using its initial weights",
+                       type(model).__name__)
+        return
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: only reference .pth checkpoints load in the port "
+            "(ROADMAP: checkpoints)")
+    from dynavsr_tpu_torch.convert.from_jax import strip_module_prefix
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    model.load_state_dict(strip_module_prefix(sd), strict=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", required=True)
+    parser.add_argument("--no-save-images", action="store_true")
+    parser.add_argument("--device", default=None, help="default: cuda")
+    args = parser.parse_args(argv)
+
+    from dynavsr_tpu_torch.config.options import dict2str, parse
+    from dynavsr_tpu_torch.data.datasets import VideoTestDataset
+
+    device = resolve_device(args.device)
+    opt = parse(args.opt)
+    logging.basicConfig(level=logging.INFO)
+    logger.info(dict2str(opt))
+    a = opt.get("adapt") or {}
+    if a.get("clip_parallel"):
+        raise NotImplementedError("adapt.clip_parallel is not yet ported")
+    if (opt.get("eval") or {}).get("tile"):
+        raise NotImplementedError("eval.tile is not yet ported")
+
+    scale = opt.get("scale", 4)
+    opt_net = opt["network_G"] or {}
+    n_frames = opt_net.get("nframes", 5)
+    vsr = build_edvr(opt_net, device)
+    est = build_mfdn(opt.get("network_E") or {}, scale, n_frames, device)
+    _load_pth(vsr, opt["path"].get("pretrain_model_G"))
+    _load_pth(est, opt["path"].get("pretrain_model_E"))
+    cfg = adapt_config(a)
+    ev = opt.get("eval") or {}
+
+    results = {}
+    for _name, dataset_opt in (opt["datasets"] or {}).items():
+        test_set = VideoTestDataset(dataset_opt)
+        for clip in test_set.names:
+            lq = test_set.clip_frames(clip)
+            # A clip without GT frames is super-resolved but not scored.
+            has_gt = test_set.gt_index is not None and clip in test_set.gt_index.clips
+            gt = test_set.clip_frames(clip, gt=True) if has_gt else None
+            _, res = run_clip(
+                vsr, est, lq, gt, cfg, seq=bool(a.get("seq")), n_frames=n_frames,
+                padding=dataset_opt.get("padding") or "reflection",
+                n_adapt=int(a.get("n_windows") or 8), scale=scale,
+                ycbcr=bool(ev.get("ycbcr", True)),
+                crop_border=int(ev.get("crop_border") or 0),
+                save_dir=None if args.no_save_images else osp.join(
+                    opt["path"]["results_root"], clip), device=device)
+            results[clip] = res
+            if "psnr_avg" in res:
+                logger.info("Clip %s: PSNR %.4f SSIM %.4f (adapted, %d steps)",
+                            clip, res["psnr_avg"], res["ssim_avg"], cfg.n_steps)
+    scored = [r for r in results.values() if "psnr_avg" in r]
+    if scored:
+        results["_avg"] = {"psnr_avg": float(np.mean([r["psnr_avg"] for r in scored])),
+                           "ssim_avg": float(np.mean([r["ssim_avg"] for r in scored]))}
+        logger.info("Average (adapted): PSNR %.4f SSIM %.4f",
+                    results["_avg"]["psnr_avg"], results["_avg"]["ssim_avg"])
+    return results
+
+
+if __name__ == "__main__":
+    main()

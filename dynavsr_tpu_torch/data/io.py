@@ -1,0 +1,57 @@
+"""Frame IO — copy of dynavsr_tpu/data/io.py (image folders only).
+
+`read_img` returns float32 RGB in [0, 1]. cv2 is imported inside the
+function that reads a file, so the package imports on a host without it.
+The LMDB reader is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+from typing import Dict, List
+
+import numpy as np
+
+__all__ = ["read_img", "glob_clip_folders"]
+
+_IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif")
+
+
+def read_img(path: str) -> np.ndarray:
+    """Read one image -> float32 RGB HWC in [0, 1]."""
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(path)
+    if img.ndim == 2:
+        img = img[:, :, None].repeat(3, axis=2)
+    if img.shape[2] == 4:
+        img = img[:, :, :3]
+    img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    return img.astype(np.float32) / 255.0
+
+
+def glob_clip_folders(dataroot: str) -> Dict[str, List[str]]:
+    """Map clip name -> sorted frame paths; a clip is any directory under
+    dataroot that directly contains image files (nested clips are keyed by
+    their relative path with '_' separators). A dataroot that holds frames
+    and no clip subdirectories is one clip named 'clip'."""
+    clips: Dict[str, List[str]] = {}
+    root_frames: List[str] = []
+    for root, dirs, files in os.walk(dataroot):
+        dirs.sort()
+        frames = sorted(
+            osp.join(root, f) for f in files if f.lower().endswith(_IMG_EXTS)
+        )
+        if not frames:
+            continue
+        rel = osp.relpath(root, dataroot)
+        if rel == ".":
+            root_frames = frames
+            continue
+        clips[rel.replace(os.sep, "_")] = frames
+    if root_frames and not clips:
+        clips["clip"] = root_frames
+    return dict(sorted(clips.items()))

@@ -1,0 +1,83 @@
+"""Shared building blocks, NCHW (port of dynavsr_tpu/models/arch_util.py).
+
+`Conv2d` adds the JAX package's bf16 compute option to torch's conv: with
+`compute_dtype=torch.bfloat16` the parameters stay fp32 and are cast, with
+the input, to bf16 for the conv, whose output stays bf16 (flax
+`nn.Conv(dtype=bfloat16)` semantics). Residual trunks are `nn.Sequential`s
+with the reference's `{name}.{i}.conv1.weight` keys; the JAX package stacks
+the same tensors on a leading axis (nn.scan).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+__all__ = ["Conv2d", "conv", "ResidualBlockNoBN", "ResTrunk", "lrelu",
+           "interpolate_bilinear", "max_pool_3x3_s2", "avg_pool_3x3_s2"]
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with an optional compute dtype (None: the input's)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1,
+         dtype: Optional[torch.dtype] = None) -> Conv2d:
+    """Conv with torch-style symmetric padding (kernel - 1) // 2."""
+    return Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, compute_dtype=dtype)
+
+
+def lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.1)
+
+
+class ResidualBlockNoBN(nn.Module):
+    """conv3x3 -> ReLU -> conv3x3 + identity."""
+
+    def __init__(self, nf: int = 64, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = conv(nf, nf, dtype=dtype)
+        self.conv2 = conv(nf, nf, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.conv2(F.relu(self.conv1(x)))
+
+
+class ResTrunk(nn.Sequential):
+    """`n_blocks` ResidualBlockNoBN in sequence."""
+
+    def __init__(self, nf: int = 64, n_blocks: int = 10, dtype: Optional[torch.dtype] = None):
+        super().__init__(*[ResidualBlockNoBN(nf, dtype) for _ in range(n_blocks)])
+
+
+def interpolate_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear resize of (..., C, H, W) by an integer factor, half-pixel
+    centres (align_corners=False)."""
+    lead = x.shape[:-3]
+    y = F.interpolate(x.reshape(-1, *x.shape[-3:]), scale_factor=scale,
+                      mode="bilinear", align_corners=False)
+    return y.reshape(*lead, *y.shape[-3:])
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """nn.MaxPool2d(3, stride=2, padding=1)."""
+    return F.max_pool2d(x, 3, 2, 1)
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """nn.AvgPool2d(3, stride=2, padding=1), count_include_pad=True."""
+    return F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)

@@ -1,0 +1,92 @@
+"""Build the CUDA kernels of csrc/ into plain-C-ABI shared libraries.
+
+Each `.cu` source is compiled by its own `nvcc` process, all started
+together, into `build/kernels/lib<name>-<hash>.so` under the repository
+root (the hash covers the sources and flags, so an edit rebuilds). The
+libraries are loaded with ctypes at first use. A missing nvcc or a failed
+build raises: nothing falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "build", "load"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("dcn_fwd", "dcn_bwd")
+_HEADERS = ("dcn_common.cuh",)
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOG: Dict[str, str] = {}
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "dcn_fwd": [_VP] * 6 + [_I] * 7 + [_VP],
+    "dcn_bwd_data": [_VP] * 8 + [_I] * 7 + [_VP],
+    "dcn_bwd_weight": [_VP] * 5 + [_I] * 7 + [_VP],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(path, os.X_OK):
+        raise RuntimeError("nvcc not found: the DCN kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for f in (f"{name}.cu",) + _HEADERS:
+        h.update((_CSRC / f).read_bytes())
+    return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> Dict[str, str]:
+    """Compile every source whose library is missing, in parallel; return
+    {name: nvcc output} (the -Xptxas -v register/shared-memory lines)."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if todo:
+        nvcc = _nvcc()
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), tmp)
+        failed = []
+        for n, (p, tmp) in procs.items():
+            out, _ = p.communicate()
+            _LOG[n] = out
+            if p.returncode != 0:
+                failed.append(f"{n}.cu (rc {p.returncode}):\n{out}")
+            else:
+                os.replace(tmp, _lib_path(n))
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return {n: _LOG.get(n, "(cached)") for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in _SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
+        _LIBS[name] = lib
+    return lib
+
