@@ -6,14 +6,18 @@
 Phases; any failure raises and exits non-zero:
   1. device   the card's name, count, and nvidia-smi's name and power limit
               (no card: exit 2, no result printed);
-  2. build    nvcc builds the DCN kernels from csrc/ (one process per
+  2. build    nvcc builds the kernels K1-K5 from csrc/ (one process per
               source, in parallel) and prints ptxas' register/smem lines;
   3. kernels  K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight against the
               plain PyTorch version (ops/dcn_ref.py and its autograd) at
               Gd 8, 2, 1 in fp32 and bf16, at the main path's two L1 DCN
               shapes (inference: 40 frames of 144x176; adaptation: 40 SLR
               frames of 36x44; C = Cout = 64), on white-noise offsets that
-              reach outside the image (a correctness check, not timed);
+              reach outside the image; K4 warp_fwd and K5 warp_bwd (grad
+              flow and grad x) against ops/grid_sample_ref.py at one
+              adaptation shape (8 frames of 144x176) and one inference
+              shape (8 of 576x704), on white-noise flows N(0, 4^2) px
+              (correctness checks, not timed);
   4. main     the DynaVSR adapt-and-infer loop at full EDVR-M x4 + MFDN
               width (configs/test/test_DynaVSR_Vid4.yml), random weights
               from a seed, on a synthetic 16-frame 144x176 clip, through
@@ -24,11 +28,22 @@ Phases; any failure raises and exits non-zero:
               one clip per dtype under torch.profiler (device time by
               kernel, the DCN share, the device's idle share), and one
               whose DCN calls are recorded;
-  5. timing   each kernel, checked again and timed with CUDA events on the
-              inputs the main path gave it (every distinct DCN call of a
-              window-batched clip: offsets, masks and gradients from the
-              network itself); their sum over a clip's launches is set
-              beside the profiler's device time for the same kernels.
+  5. TOF      the DynaVSR-TOF loop at full width (TOFlow, 7 frames, the
+              bicubic x4 pre-upscale; MFDN nf 64; train_ema BatchNorm
+              adaptation) on the same clip through run_clip,
+              window-batched, fp32 and bf16. Checks finite losses, the K4 /
+              K5 launches a clip must make, the meta model's running
+              statistics unchanged, and one window of TOF with the kernels
+              against TOF with the plain warp; then one clip per dtype under
+              torch.profiler and one whose warp calls are recorded;
+  6. timing   each kernel, checked again and timed with CUDA events on the
+              inputs the main paths gave it (every distinct DCN call of a
+              window-batched EDVR clip: offsets, masks and gradients from the
+              network itself; every distinct warp call of a TOF clip: flows
+              from SpyNet, gradients from the adaptation loss), beside the
+              plain version and, for K4 / K5, F.grid_sample; their sum over a
+              clip's launches is set beside the profiler's device time for
+              the same kernels.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -45,14 +60,20 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
-from dynavsr_tpu_torch.cli.test_dynavsr import build_edvr, build_mfdn, run_clip
+from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, run_clip
 from dynavsr_tpu_torch.data.resize import imresize
 from dynavsr_tpu_torch.data.windows import all_windows
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import score_frames
 from dynavsr_tpu_torch.models import edvr as edvr_module
-from dynavsr_tpu_torch.ops import _build, dcn
+from dynavsr_tpu_torch.models import tof as tof_module
+from dynavsr_tpu_torch.models.networks import define_G
+from dynavsr_tpu_torch.models.padding import make_model_apply
+from dynavsr_tpu_torch.ops import _build, dcn, grid_sample_ref
+from dynavsr_tpu_torch.ops import grid_sample as warp
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -75,13 +96,45 @@ def dcn_label(kind: str, shape) -> str:
 
 
 DCN_SHAPES = {dcn_label("infer", INFER_L1): INFER_L1, dcn_label("adapt", ADAPT_L1): ADAPT_L1}
-# name: (source, the DCN call whose timing stands in the JSON line)
+
+# The DynaVSR-TOF path: TOFlow on 7 frames pre-upscaled x4, so SpyNet's
+# finest level and the final warp run at 144x176 in adaptation (8 SLR
+# windows of 36x44) and at 576x704 in inference (chunks of 8 windows).
+TOF_G = {"which_model_G": "TOF", "nframes": 7}
+TOF_FRAMES, SPY_LEVELS = 7, 4
+WARP_ADAPT, WARP_INFER = (8, 3, LR_H, LR_W), (8, 3, LR_H * SCALE, LR_W * SCALE)
+
+
+def warp_label(kind: str, shape) -> str:
+    return f"{kind} {shape[0]}x{shape[2]}x{shape[3]}"
+
+
+WARP_SHAPES = {warp_label("adapt", WARP_ADAPT): WARP_ADAPT,
+               warp_label("infer", WARP_INFER): WARP_INFER}
+# name: (source, the call whose timing stands in the JSON line, the TPU kernel it replaces)
 KERNELS = {
-    "dcn_fwd": ("dynavsr_tpu_torch/csrc/dcn_fwd.cu", dcn_label("infer", INFER_L1)),
-    "dcn_bwd_data": ("dynavsr_tpu_torch/csrc/dcn_bwd.cu", dcn_label("adapt", ADAPT_L1)),
-    "dcn_bwd_weight": ("dynavsr_tpu_torch/csrc/dcn_bwd.cu", dcn_label("adapt", ADAPT_L1)),
+    "dcn_fwd": ("dynavsr_tpu_torch/csrc/dcn_fwd.cu", dcn_label("infer", INFER_L1),
+                "dynavsr_tpu/ops/dcn_fused.py:100"),
+    "dcn_bwd_data": ("dynavsr_tpu_torch/csrc/dcn_bwd.cu", dcn_label("adapt", ADAPT_L1),
+                     "dynavsr_tpu/ops/dcn_fused.py:100"),
+    "dcn_bwd_weight": ("dynavsr_tpu_torch/csrc/dcn_bwd.cu", dcn_label("adapt", ADAPT_L1),
+                       "dynavsr_tpu/ops/dcn_fused.py:100"),
+    "warp_fwd": ("dynavsr_tpu_torch/csrc/warp_fwd.cu", warp_label("infer", WARP_INFER),
+                 "dynavsr_tpu/ops/grid_sample.py:54"),
+    "warp_bwd": ("dynavsr_tpu_torch/csrc/warp_bwd.cu", warp_label("adapt", WARP_ADAPT),
+                 "dynavsr_tpu/ops/grid_sample.py:54"),
 }
-REPLACES = "dynavsr_tpu/ops/dcn_fused.py:100"
+DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
+WARP_KERNELS = ("warp_fwd", "warp_bwd")
+
+
+def reset_all_counts() -> None:
+    dcn.reset_launch_counts()
+    warp.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    return {**dcn.launch_counts(), **warp.launch_counts()}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -172,7 +225,7 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
     relative to the plain result's largest value: fp32 1e-4 (same
     arithmetic, another order; K2/K3 atomics), bf16 2^-7 (one rounding of
     the kernels' fp32 result to bf16, with margin)."""
-    names = list(KERNELS) if cot is not None else ["dcn_fwd"]
+    names = list(DCN_KERNELS) if cot is not None else ["dcn_fwd"]
     dtype, shape = x.dtype, tuple(x.shape)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     ref_in = [t.detach().float().requires_grad_() for t in (x, offset, mask, weight, bias)]
@@ -224,6 +277,97 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
     return rows
 
 
+def warp_bound(name, shape, need_x):
+    """(bound_ms, bound_by, bytes, flops) of one K4 / K5 call on fp32 (B, C,
+    H, W) frames and (B, 2, H, W) flows: each input read once, each output
+    written once. K4 reads x and the flow and writes out (2C + 2 values a
+    pixel); K5 reads x, the flow and grad_out and writes grad flow, and
+    grad x when asked for (3C + 4 + [C]). Operations: ~10 a pixel for the
+    position and corner weights, then 7 (K4) or 12 (K5, +8 with grad x) a
+    channel."""
+    b, c, h, w = shape
+    px = b * h * w
+    if name == "warp_fwd":
+        vals, flops = 2 * c + 2, px * (10 + 7 * c)
+    else:
+        vals = 2 * c + 4 + (c if need_x else 0)
+        flops = px * (10 + (20 if need_x else 12) * c)
+    nbytes = px * vals * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def torch_grid(flow):
+    """The F.grid_sample grid (align_corners=True) of a (B, 2, H, W) flow:
+    pixel positions normalised as 2 v / (size - 1) - 1."""
+    h, w = flow.shape[-2:]
+    vy, vx = grid_sample_ref.flow_grid(flow)
+    return torch.stack((2.0 * vx / max(w - 1, 1) - 1.0, 2.0 * vy / max(h - 1, 1) - 1.0), dim=3)
+
+
+def warp_against_plain(label, x, flow, cot, need_x, timed):
+    """Hold K4 (and K5 when a cotangent is given) against the plain version
+    (ops/grid_sample_ref.py and its autograd) on the same fp32 inputs and
+    raise if one disagrees: forward 1e-5 of the largest reference value
+    (the same four products), grad flow and grad x 1e-4 (grad x lands with
+    atomics, in another order). With `timed`, time the wrappers, the plain
+    version and the library call that computes the same function
+    (F.grid_sample, bilinear, zeros, align_corners=True, on a grid
+    normalised beforehand; its backward asked for the same gradients)."""
+    shape = tuple(x.shape)
+    x_r = x.detach().clone().requires_grad_(need_x)
+    f_r = flow.detach().clone().requires_grad_()
+    ref = grid_sample_ref.warp_nchw(x_r, f_r)
+    got = {"warp_fwd": [warp.warp_fwd(x, flow)]}
+    want = {"warp_fwd": [ref.detach()]}
+    wrt = [f_r, x_r] if need_x else [f_r]
+    if cot is not None:
+        gx, gf = warp.warp_bwd(x, flow, cot, need_x=need_x)
+        got["warp_bwd"] = [gf] + ([gx] if need_x else [])
+        want["warp_bwd"] = list(torch.autograd.grad(ref, wrt, cot, retain_graph=True))
+    torch.cuda.synchronize()
+    rows = []
+    for name in got:
+        tol = 1e-5 if name == "warp_fwd" else 1e-4
+        err = max(float((g - r).abs().max()) for g, r in zip(got[name], want[name]))
+        scale = max(float(r.abs().max()) for r in want[name])
+        ok = err <= tol * scale
+        row = dict(name=name, label=label, dims=list(shape), dtype="float32", need_x=need_x,
+                   max_abs_err=err, tol=tol * scale)
+        what = "fp32 +grad x" if need_x and name == "warp_bwd" else "fp32"
+        line = (f"{name:14s} {label} {shape} {what} max|err| {err:.3e} "
+                f"(tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if timed:
+            grid = torch_grid(flow).requires_grad_()
+            x_l = x.detach().clone().requires_grad_(need_x)
+            lib = F.grid_sample(x_l, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=True)
+            if name == "warp_fwd":
+                ms = cuda_ms(lambda: warp.warp_fwd(x, flow), reps=20)
+                plain_ms = cuda_ms(lambda: grid_sample_ref.warp_nchw(x, flow), reps=5)
+                library_ms = cuda_ms(lambda: F.grid_sample(
+                    x, grid.detach(), mode="bilinear", padding_mode="zeros",
+                    align_corners=True), reps=20)
+            else:
+                lib_wrt = [grid, x_l] if need_x else [grid]
+                ms = cuda_ms(lambda: warp.warp_bwd(x, flow, cot, need_x=need_x), reps=20)
+                plain_ms = cuda_ms(lambda: torch.autograd.grad(ref, wrt, cot, retain_graph=True),
+                                   reps=5)
+                library_ms = cuda_ms(lambda: torch.autograd.grad(lib, lib_wrt, cot,
+                                                                 retain_graph=True), reps=20)
+            bound_ms, bound_by, nbytes, flops = warp_bound(name, shape, need_x)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, flops=flops,
+                       gb_per_s=nbytes / ms / 1e6, roofline=bound_ms / ms)
+            line += (f"  {ms:.4f} ms  plain {plain_ms:.4f} ms  F.grid_sample {library_ms:.4f} ms"
+                     f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)  "
+                     f"{row['gb_per_s']:.0f} GB/s  roofline {row['roofline']:.1%}")
+        print(f"[{'timing' if timed else 'kernel'}] {line}")
+        check(ok, f"{name} {label} {shape}: {err} > {tol * scale}")
+        rows.append(row)
+    return rows
+
+
 def phase_kernels() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for shape_name, shape in DCN_SHAPES.items():
@@ -233,14 +377,27 @@ def phase_kernels() -> None:
                 against_plain(shape_name, x, offset, mask, weight, bias, cot, gd, timed=False)
                 del x, offset, mask, weight, bias, cot
                 torch.cuda.empty_cache()
+    for label, shape in WARP_SHAPES.items():
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        flow = torch.randn(shape[0], 2, *shape[2:], generator=gen, device="cuda") * 4.0
+        cot = torch.randn(*shape, generator=gen, device="cuda")
+        warp_against_plain(label, x, flow, cot, need_x=True, timed=False)
+        del x, flow, cot
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 4
 def init_weights(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Seeded weights: U(+-1/sqrt(fan_in)) like torch's default conv init,
-    scaled by 0.1 in residual blocks (the reference's initialize_weights)."""
+    scaled by 0.1 in residual blocks (the reference's initialize_weights).
+    BatchNorm keeps torch's defaults: weight 1, bias 0, running stats 0 / 1."""
+    bn = {f"{m}.{n}" for m, mod in model.named_modules()
+          if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm)
+          for n, _ in mod.named_parameters(recurse=False)}
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if name in bn:
+                continue
             fan_in = p[0].numel() if p.dim() > 1 else p.numel()
             scale = 0.1 if ("feature_extraction" in name or "recon_trunk" in name) else 1.0
             p.copy_((torch.rand(p.shape, generator=gen, device=p.device) * 2 - 1)
@@ -266,12 +423,10 @@ def synthetic_clip(gen: torch.Generator):
     return lr.cpu().numpy(), hr.cpu().numpy()
 
 
-def phase_main(smi: str):
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    lq, gt = synthetic_clip(gen)
-    vsr32 = build_edvr(EDVR_M)  # the entry points' default device: the card
+def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
+    vsr32 = define_G({"network_G": EDVR_M})  # the entry points' default device: the card
     init_weights(vsr32, gen)
-    vsr16 = build_edvr({**EDVR_M, "dtype": "bfloat16"})
+    vsr16 = define_G({"network_G": {**EDVR_M, "dtype": "bfloat16"}})
     vsr16.load_state_dict(vsr32.state_dict())
     est = build_mfdn({"nf": MFDN_NF}, SCALE, EDVR_M["nframes"])
     init_weights(est, gen)
@@ -285,18 +440,18 @@ def phase_main(smi: str):
     for model in (vsr32, vsr16):  # warm-up: cuDNN handles, kernel loads
         clip(model, seq=False)
 
-    dcn.reset_launch_counts()
+    reset_all_counts()
     results = {}
     for dt_name, model in (("fp32", vsr32), ("bf16", vsr16)):
         for seq in (False, True):
             mode = f"{dt_name}-{'seq' if seq else 'windows'}"
-            before = dcn.launch_counts()
+            before = all_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             sr, res = clip(model, seq)
             secs = time.perf_counter() - t0  # run_clip returns host arrays: synchronised
             peak = torch.cuda.max_memory_allocated()
-            counts = {k: v - before[k] for k, v in dcn.launch_counts().items()}
+            counts = {k: v - before[k] for k, v in all_counts().items() if k in DCN_KERNELS}
             losses = res["adapt_losses"]
             check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
                   f"{mode}: adaptation losses {losses}")
@@ -309,10 +464,10 @@ def phase_main(smi: str):
                   f"peak {peak / 2**30:.2f} GiB  PSNR-Y {score['psnr_avg']:.3f} "
                   f"SSIM {score['ssim_avg']:.4f}  losses {[f'{v:.6f}' for v in losses]}  "
                   f"launches {counts}  [{smi}]")
-    launches = dcn.launch_counts()
+    launches = all_counts()
     print(f"[main] launches over the four clips: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+    for name in DCN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was never launched on the EDVR path")
 
     d32 = float(np.abs(results["fp32-windows"]["sr"] - results["fp32-seq"]["sr"]).max())
     d16 = float(np.abs(results["bf16-windows"]["sr"] - results["bf16-seq"]["sr"]).max())
@@ -337,7 +492,7 @@ def phase_main(smi: str):
     profiles, calls = {}, {}
     for dt_name, model in (("fp32", vsr32), ("bf16", vsr16)):
         profiles[dt_name] = results[f"{dt_name}-windows"]["profile"] = profile_clip(
-            lambda: clip(model, seq=False), f"{dt_name}-windows", smi)
+            lambda: clip(model, seq=False), f"{dt_name}-windows", smi, DCN_KERNELS)
         calls[dt_name] = record_dcn_calls(lambda: clip(model, seq=False))
         print(f"[main] {dt_name}-windows DCN calls per clip: "
               f"{ {k: v['count'] for k, v in calls[dt_name].items()} }")
@@ -375,6 +530,132 @@ def record_dcn_calls(run) -> dict:
 
 
 # ---------------------------------------------------------------- phase 5
+def warp_launches_per_clip(cfg: AdaptConfig) -> dict:
+    """K4 / K5 launches one window-batched TOF clip must make: every SpyNet
+    call warps once per level, and each neighbour's frame is warped once
+    more by its final flow; the level-0 flow is zeros with no gradient, so
+    that warp gets no backward."""
+    nbrs, chunks = TOF_FRAMES - 1, -(-CLIP_T // cfg.infer_chunk)
+    per_forward = nbrs * (SPY_LEVELS + 1)
+    return {"warp_fwd": (cfg.n_steps + chunks) * per_forward,
+            "warp_bwd": cfg.n_steps * nbrs * SPY_LEVELS}
+
+
+def phase_tof(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
+    """The DynaVSR-TOF loop at full width, fp32 and bf16, window-batched."""
+    opt = {"scale": SCALE, "network_G": TOF_G}
+    tof32 = define_G(opt)  # the entry points' default device: the card
+    init_weights(tof32, gen)
+    tof16 = define_G({**opt, "network_G": {**TOF_G, "dtype": "bfloat16"}})
+    tof16.load_state_dict(tof32.state_dict())
+    est = build_mfdn({"nf": MFDN_NF}, SCALE, TOF_FRAMES)
+    init_weights(est, gen)
+    cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
+    expect = warp_launches_per_clip(cfg)
+    stats0 = {k: v.clone() for k, v in tof32.state_dict().items() if "running" in k}
+
+    def clip(model):
+        return run_clip(model, est, lq, None, cfg, seq=False, n_frames=TOF_FRAMES,
+                        padding="reflection", n_adapt=N_WINDOWS)
+
+    for model in (tof32, tof16):  # warm-up: cuDNN plans, kernel loads
+        clip(model)
+
+    results, launches = {}, {}
+    for dt_name, model in (("fp32", tof32), ("bf16", tof16)):
+        mode = f"tof-{dt_name}-windows"
+        reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sr, res = clip(model)
+        secs = time.perf_counter() - t0  # run_clip returns host arrays: synchronised
+        counts = all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = res["adapt_losses"]
+        check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
+              f"{mode}: adaptation losses {losses}")
+        check(sr.shape == gt.shape and bool(np.isfinite(sr).all()), f"{mode}: SR output")
+        for name in WARP_KERNELS:
+            check(counts[name] == expect[name],
+                  f"{mode}: {name} launched {counts[name]} times, a clip makes {expect[name]}")
+        for name in DCN_KERNELS:
+            check(counts[name] == 0, f"{mode}: TOF launched {name}")
+        if dt_name == "fp32":
+            launches = counts
+        score = score_frames(sr, gt, ycbcr=True, crop_border=0)
+        results[mode] = dict(fps=CLIP_T / secs, secs=secs, peak=peak, losses=losses,
+                             counts=counts, psnr=score["psnr_avg"], ssim=score["ssim_avg"])
+        print(f"[tof] {mode:18s} {CLIP_T / secs:.3f} frames/s ({secs:.3f} s/clip) "
+              f"peak {peak / 2**30:.2f} GiB  PSNR-Y {score['psnr_avg']:.3f} "
+              f"SSIM {score['ssim_avg']:.4f}  losses {[f'{v:.6f}' for v in losses]}  "
+              f"launches {({k: counts[k] for k in WARP_KERNELS})} (a clip makes {expect})  "
+              f"[{smi}]")
+    for k, v in tof32.state_dict().items():
+        if k in stats0:
+            check(torch.equal(v, stats0[k]), f"the meta model's {k} moved: the copy leaked")
+    print("[tof] the meta model's BatchNorm running statistics are unchanged after the clips")
+
+    # One window through TOF with the kernels and with the plain warp.
+    win = torch.as_tensor(lq[all_windows(CLIP_T, TOF_FRAMES, "reflection")[:1]], device="cuda")
+    apply = make_model_apply("TOF", SCALE)
+    kernel_fn = tof_module.warp_nchw
+    with torch.no_grad():
+        sr_kernel = apply(tof32, win)
+        tof_module.warp_nchw = grid_sample_ref.warp_nchw
+        try:
+            sr_plain = apply(tof32, win)
+        finally:
+            tof_module.warp_nchw = kernel_fn
+    d_ref = float((sr_kernel - sr_plain).abs().max())
+    print(f"[tof] one window, kernels vs plain warp (fp32): max |SR diff| {d_ref:.3e} "
+          "(limit 1e-4)")
+    check(d_ref <= 1e-4, f"TOF with the kernels differs from the plain warp by {d_ref}")
+
+    profiles, calls = {}, {}
+    for dt_name, model in (("fp32", tof32), ("bf16", tof16)):
+        mode = f"tof-{dt_name}-windows"
+        profiles[dt_name] = results[mode]["profile"] = profile_clip(
+            lambda: clip(model), mode, smi, WARP_KERNELS)
+        calls[dt_name] = record_warp_calls(lambda: clip(model))
+        print(f"[tof] {mode} warp calls per clip: "
+              f"{ {k: (v['count'], v['bwd']) for k, v in calls[dt_name].items()} } "
+              "(kind BxHxW: (K4, K5))")
+    return launches, results, profiles, calls
+
+
+def record_warp_calls(run) -> dict:
+    """Run `run()` with TOFlow's warp calls recorded, by kind (adaptation
+    when autograd is on, else inference) and batch x height x width: how
+    many calls of that kind the run made and how many of them had a
+    backward, the first one's inputs and, where it had one, the gradient
+    that reached its output."""
+    calls = {}
+    kernel_fn = tof_module.warp_nchw
+
+    def recording(x, flow):
+        out = kernel_fn(x, flow)
+        label = warp_label("adapt" if torch.is_grad_enabled() else "infer", x.shape)
+        rec = calls.get(label)
+        if rec is None:
+            rec = calls[label] = dict(count=0, bwd=0, args=[x.detach().clone(),
+                                                            flow.detach().clone()])
+        rec["count"] += 1
+        if out.requires_grad:
+            rec["bwd"] += 1
+            if "cot" not in rec:
+                rec["cot"] = None
+                out.register_hook(lambda g: rec.__setitem__("cot", g.detach().clone()))
+        return out
+
+    tof_module.warp_nchw = recording
+    try:
+        run()
+    finally:
+        tof_module.warp_nchw = kernel_fn
+    return calls
+
+
+# ---------------------------------------------------------------- phase 6
 def phase_timing(calls: dict, profiles: dict, smi: str) -> list:
     """Each kernel on every kind of DCN call the main path made, checked
     against the plain version and timed; per clip, the timed launches times
@@ -384,7 +665,7 @@ def phase_timing(calls: dict, profiles: dict, smi: str) -> list:
           "wrappers' (zero-fills, weight layout and casts included)")
     rows = []
     for dt_name, by_kind in calls.items():
-        per_clip = dict.fromkeys(KERNELS, 0.0)
+        per_clip = dict.fromkeys(DCN_KERNELS, 0.0)
         for label, rec in by_kind.items():
             check(label.startswith("infer") or "cot" in rec, f"{label}: no gradient recorded")
             for row in against_plain(label, *rec["args"], rec.get("cot"), rec["gd"],
@@ -395,16 +676,41 @@ def phase_timing(calls: dict, profiles: dict, smi: str) -> list:
         prof = profiles.get(dt_name, {})
         print(f"[timing] {dt_name}-windows per clip: timed launches x calls "
               f"{ {k: round(v, 2) for k, v in per_clip.items()} } ms; profiler's kernel "
-              f"time {prof.get('dcn_ms', 'not measured')} ms over "
-              f"{prof.get('dcn_n', 'not measured')} launches")
+              f"time {prof.get('kernel_ms', 'not measured')} ms over "
+              f"{prof.get('kernel_n', 'not measured')} launches")
     return rows
 
 
-def profile_clip(run, mode: str, smi: str) -> dict:
-    """One clip under torch.profiler: device time by kernel, the DCN
-    kernels' share, and the device's idle share of the profiled wall time
-    (1 - union of kernel intervals / wall; the profiler's own overhead
-    lengthens the wall time)."""
+def phase_warp_timing(calls: dict, profiles: dict, smi: str) -> list:
+    """K4 / K5 on every kind of warp call the TOF clip made, checked against
+    the plain version and timed beside it and F.grid_sample; per clip, the
+    timed launches times their count beside the profiler's device time."""
+    rows = []
+    for dt_name, by_kind in calls.items():
+        per_clip = dict.fromkeys(WARP_KERNELS, 0.0)
+        for label, rec in sorted(by_kind.items()):
+            check(rec["bwd"] == 0 or rec.get("cot") is not None,
+                  f"{label}: no gradient recorded")
+            x, flow = rec["args"]
+            for row in warp_against_plain(label, x, flow, rec.get("cot"), need_x=False,
+                                          timed=True):
+                row["per_clip"] = rec["count"] if row["name"] == "warp_fwd" else rec["bwd"]
+                row["run"] = dt_name
+                per_clip[row["name"]] += row["ms"] * row["per_clip"]
+                rows.append(row)
+        prof = profiles.get(dt_name, {})
+        print(f"[timing] tof-{dt_name}-windows per clip: timed launches x calls "
+              f"{ {k: round(v, 3) for k, v in per_clip.items()} } ms; profiler's kernel "
+              f"time {prof.get('kernel_ms', 'not measured')} ms over "
+              f"{prof.get('kernel_n', 'not measured')} launches")
+    return rows
+
+
+def profile_clip(run, mode: str, smi: str, names) -> dict:
+    """One clip under torch.profiler: device time by kernel, the share of
+    the port's kernels `names`, and the device's idle share of the
+    profiled wall time (1 - union of kernel intervals / wall; the
+    profiler's own overhead lengthens the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -426,17 +732,18 @@ def profile_clip(run, mode: str, smi: str) -> dict:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     total = sum(by_name.values())
-    dcn_us = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) for k in KERNELS}
-    dcn_n = {k: sum(v for n, v in n_by_name.items() if f"{k}_kernel" in n) for k in KERNELS}
+    k_us = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) for k in names}
+    k_n = {k: sum(v for n, v in n_by_name.items() if f"{k}_kernel" in n) for k in names}
     print(f"[profile] {mode}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, "
-          f"idle share {1 - busy / wall_us:.1%}; DCN kernels "
-          f"{ {k: round(v / 1e3, 2) for k, v in dcn_us.items()} } ms = "
-          f"{sum(dcn_us.values()) / total:.1%} of device time  [{smi}]")
+          f"idle share {1 - busy / wall_us:.1%}; the port's kernels "
+          f"{ {k: round(v / 1e3, 2) for k, v in k_us.items()} } ms = "
+          f"{sum(k_us.values()) / total:.1%} of device time  [{smi}]")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
         print(f"[profile] {mode}:   {us / 1e3:8.2f} ms {us / total:6.1%}  {name[:90]}")
-    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                dcn_ms={k: round(v / 1e3, 3) for k, v in dcn_us.items()}, dcn_n=dcn_n,
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
+                kernel_ms={k: round(v / 1e3, 3) for k, v in k_us.items()}, kernel_n=k_n,
+                kernel_share=sum(k_us.values()) / total,
                 top=[(n, us / 1e3) for n, us in top])
 
 
@@ -444,24 +751,35 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     phase_kernels()
-    launches, main_results, profiles, calls = phase_main(smi)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lq, gt = synthetic_clip(gen)
+    edvr_launches, main_results, profiles, calls = phase_main(smi, gen, lq, gt)
+    tof_launches, tof_results, tof_profiles, warp_calls = phase_tof(smi, gen, lq, gt)
     rows = phase_timing(calls, profiles, smi)
+    rows += phase_warp_timing(warp_calls, tof_profiles, smi)
+    # Each kernel's launches are those of the path that runs it (counts set
+    # to 0 just before that path and read just after).
+    launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
+                **{k: tof_launches[k] for k in WARP_KERNELS}}
 
     kernels = []
-    for name, (source, label) in KERNELS.items():
+    for name, (source, label, replaces) in KERNELS.items():
         row = next(r for r in rows if r["name"] == name and r["label"] == label
-                   and r["dtype"] == "float32")
+                   and r["dtype"] == "float32" and r.get("run", "fp32") == "fp32")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": REPLACES, "launches": launches[name],
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": None})
+                        "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": smi, "kernels": rows, "main": main_results}, f, indent=1)
+            json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

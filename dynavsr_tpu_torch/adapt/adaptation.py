@@ -1,14 +1,24 @@
 """Test-time adaptation — the DynaVSR product loop (port of
-dynavsr_tpu/adapt/adaptation.py, grad_stats mode: EDVR has no BN).
+dynavsr_tpu/adapt/adaptation.py).
 
 Per clip: copy the meta weights, take k optimizer steps on the
 self-supervised pseudo-task (SLR window = MFDN(LR window) -> LR centre),
 then run the adapted net over every sliding window of the clip.
 
 Where the JAX functions take `params`, these take the module that holds
-them. Every clip starts from a fresh deep copy of that module and a fresh
-optimizer: JAX's functional update cannot leak one clip's adaptation into
-the next, and an in-place torch loop would unless it copies.
+them. Every clip starts from a fresh deep copy of that module (its
+BatchNorm running statistics included) and a fresh optimizer: JAX's
+functional update cannot leak one clip's adaptation into the next, and an
+in-place torch loop would unless it copies.
+
+BatchNorm nets (TOF) adapt in `bn_mode` 'train_ema', the reference's
+train()-mode semantics: the adaptation forward runs the module in train
+mode (batch statistics; the running statistics move by the module's EMA,
+in place), gradients move the trainable parameters, and inference runs in
+eval mode on the EMA'd statistics. 'auto' resolves to it for nets with
+BatchNorm and to 'grad_stats' (plain gradient steps) for EDVR. The JAX
+package's 'grad_stats' on a BatchNorm net, where gradients move the
+running statistics too, is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -18,11 +28,12 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn as nn
 
 from dynavsr_tpu_torch.train.losses import charbonnier_loss
 
-__all__ = ["AdaptConfig", "chunked_apply", "make_adapt_fn", "make_adapt_and_infer",
-           "make_adapt_and_infer_seq", "seq_forward"]
+__all__ = ["AdaptConfig", "chunked_apply", "has_batch_norm", "resolve_bn_mode",
+           "make_adapt_fn", "make_adapt_and_infer", "make_adapt_and_infer_seq", "seq_forward"]
 
 
 @dataclasses.dataclass
@@ -32,6 +43,19 @@ class AdaptConfig:
     optimizer: str = "adam"  # the only one the test configs use
     reduction: str = "mean"
     infer_chunk: int = 0  # 0 = all windows in one batch
+    bn_mode: str = "auto"  # 'auto' | 'train_ema' | 'grad_stats' (see the module note)
+
+
+def has_batch_norm(model: nn.Module) -> bool:
+    return any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in model.modules())
+
+
+def resolve_bn_mode(bn_mode: str, model: nn.Module) -> str:
+    """'auto' -> 'train_ema' for nets with BatchNorm (TOF), 'grad_stats'
+    otherwise (EDVR); an explicit mode is returned as it is."""
+    if bn_mode != "auto":
+        return bn_mode
+    return "train_ema" if has_batch_norm(model) else "grad_stats"
 
 
 def chunked_apply(apply: Callable, windows: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -50,21 +74,47 @@ def _make_opt(cfg: AdaptConfig, params) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)  # optax.adam
 
 
-def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Callable:
+def _train_mode_apply(model, x):
+    model.train()
+    return model(x)
+
+
+def _eval_mode_apply(model, x):
+    model.eval()
+    return model(x)
+
+
+def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
+                  mutable_apply_fn: Optional[Callable] = None) -> Callable:
     """adapt(meta_model, slr_windows, lr_centers) -> (adapted_model, losses).
 
     apply_fn(model, x) overrides model(x), e.g. the mod-padded apply of
-    models/padding.py. losses (n_steps,) are taken before each update, as
-    jax.value_and_grad gives them."""
-    apply = apply_fn or (lambda m, x: m(x))
+    models/padding.py. In 'train_ema' mode the adaptation forward is
+    mutable_apply_fn(model, x) instead, which must run the module in train
+    mode (default: model.train() then model(x);
+    models/padding.make_mutable_model_apply builds the padded one). losses
+    (n_steps,) are taken before each update, as jax.value_and_grad gives
+    them."""
+    apply = apply_fn or _eval_mode_apply
 
     def adapt(meta_model, slr_windows, lr_centers):
+        mode = resolve_bn_mode(cfg.bn_mode, meta_model)
+        if mode == "train_ema":
+            forward = mutable_apply_fn or _train_mode_apply
+        elif mode == "grad_stats":
+            if has_batch_norm(meta_model):
+                raise NotImplementedError(
+                    "bn_mode 'grad_stats' on a BatchNorm net is not ported yet (ROADMAP: "
+                    "grad_stats for BN nets); use 'train_ema' or 'auto'")
+            forward = apply
+        else:
+            raise ValueError(f"unknown bn_mode {cfg.bn_mode!r}")
         model = copy.deepcopy(meta_model)
         opt = _make_opt(cfg, model.parameters())
         losses = []
         for _ in range(cfg.n_steps):
             opt.zero_grad(set_to_none=True)
-            loss = charbonnier_loss(apply(model, slr_windows), lr_centers,
+            loss = charbonnier_loss(forward(model, slr_windows), lr_centers,
                                     reduction=cfg.reduction)
             loss.backward()
             opt.step()
@@ -75,14 +125,17 @@ def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Call
     return adapt
 
 
-def make_adapt_and_infer(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Callable:
+def make_adapt_and_infer(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
+                         mutable_apply_fn: Optional[Callable] = None) -> Callable:
     """run(meta_model, slr_windows, lr_centers, lr_windows) -> (sr, losses).
 
     slr_windows (K, N, h/s, w/s, 3) adaptation inputs (from MFDN);
     lr_centers (K, h, w, 3) their targets; lr_windows (F, N, h, w, 3)
-    every sliding window of the clip. sr: (F, H, W, 3)."""
-    adapt = make_adapt_fn(cfg, apply_fn)
-    apply = apply_fn or (lambda m, x: m(x))
+    every sliding window of the clip. sr: (F, H, W, 3). Inference runs the
+    adapted module in eval mode (apply_fn must set it, as
+    models/padding.make_model_apply does)."""
+    adapt = make_adapt_fn(cfg, apply_fn, mutable_apply_fn)
+    apply = apply_fn or _eval_mode_apply
 
     def run(meta_model, slr_windows, lr_centers, lr_windows):
         adapted, losses = adapt(meta_model, slr_windows, lr_centers)
@@ -93,7 +146,8 @@ def make_adapt_and_infer(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) 
     return run
 
 
-def make_adapt_and_infer_seq(cfg: AdaptConfig, apply_fn: Optional[Callable] = None) -> Callable:
+def make_adapt_and_infer_seq(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
+                             mutable_apply_fn: Optional[Callable] = None) -> Callable:
     """Sequence-mode adapt+infer: the same adaptation, then
     EDVR.forward_seq semantics for inference.
 
@@ -101,7 +155,7 @@ def make_adapt_and_infer_seq(cfg: AdaptConfig, apply_fn: Optional[Callable] = No
       frames (T, h, w, 3) the clip, already mod-4 padded by the caller;
       win_idx (F, N) sliding-window indices (data/windows.all_windows).
     apply_fn drives only the adaptation pseudo-task."""
-    adapt = make_adapt_fn(cfg, apply_fn)
+    adapt = make_adapt_fn(cfg, apply_fn, mutable_apply_fn)
 
     def run(meta_model, slr_windows, lr_centers, frames, win_idx):
         adapted, losses = adapt(meta_model, slr_windows, lr_centers)

@@ -1,9 +1,9 @@
 """DynaVSR adaptation eval (port of dynavsr_tpu/cli/test_dynavsr.py).
 
 Per clip: MFDN turns the adaptation windows into SLR windows, the VSR net
-takes k adaptation steps on (SLR window -> LR centre), then slides over
-the clip (window-batched, or sequence mode with `adapt.seq: true`), and
-the frames are scored.
+(EDVR or TOF, `network_G.which_model_G`) takes k adaptation steps on (SLR
+window -> LR centre), then slides over the clip (window-batched, or for
+EDVR sequence mode with `adapt.seq: true`), and the frames are scored.
 
     python -m dynavsr_tpu_torch.cli.test_dynavsr -opt configs/test/test_DynaVSR_Vid4.yml
 """
@@ -22,55 +22,70 @@ from dynavsr_tpu_torch.adapt.adaptation import (
     AdaptConfig,
     make_adapt_and_infer,
     make_adapt_and_infer_seq,
+    resolve_bn_mode,
 )
 from dynavsr_tpu_torch.data.windows import all_windows
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import score_frames
 from dynavsr_tpu_torch.models.downscaler import MFDN
-from dynavsr_tpu_torch.models.edvr import EDVR
-from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
+from dynavsr_tpu_torch.models.networks import define_G
+from dynavsr_tpu_torch.models.padding import (
+    arch_mod,
+    make_model_apply,
+    make_mutable_model_apply,
+)
 
-__all__ = ["run_clip", "build_edvr", "build_mfdn", "adapt_config", "main"]
+__all__ = ["run_clip", "build_mfdn", "adapt_config", "main"]
 
 logger = logging.getLogger("dynavsr_tpu_torch")
 
 
 def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfig, *,
              seq: bool, n_frames: int, padding: str, n_adapt: int, scale: int = 4,
-             ycbcr: bool = True, crop_border: int = 0, save_dir: Optional[str] = None,
-             device=None) -> Tuple[np.ndarray, dict]:
+             ycbcr: bool = True, crop_border: int = 0,
+             save_dir: Optional[str] = None, device=None) -> Tuple[np.ndarray, dict]:
     """Adapt `vsr` (a copy of it) to one clip and super-resolve the clip.
 
-    lq (T, h, w, 3) / gt (T, H, W, 3) float in [0, 1]. The work runs on
-    `device` (default: cuda; see device.resolve_device), where vsr and est
-    must already be (build_edvr / build_mfdn with the same device). Returns
-    (sr (T, H, W, 3), scores), with the per-step adaptation losses under
-    scores['adapt_losses']."""
+    lq (T, h, w, 3) / gt (T, H, W, 3) float in [0, 1]. vsr's class names
+    its architecture (`vsr.arch`: EDVR or TOF) and so its input convention
+    (models/padding.py). `seq` asks for sequence-mode inference, which only
+    EDVR has: another net falls back to the window-batched path with a
+    warning, as the JAX CLI does. The work runs on `device` (default: cuda;
+    see device.resolve_device), where vsr and est must already be
+    (define_G / build_mfdn with the same device). Returns (sr (T, H, W, 3), scores),
+    with the per-step adaptation losses under scores['adapt_losses']."""
     device = resolve_device(device)
     for name, module in (("vsr", vsr), ("est", est)):
         on = next(module.parameters()).device
         if on != device:
             raise ValueError(f"{name} is on {on}, but the clip runs on {device}: "
                              f"build it with device={str(device)!r}")
+    which = vsr.arch
+    if seq and which != "EDVR":
+        logger.warning("adapt.seq requested but which_model_G=%s has no pyramid-split "
+                       "forward: using the window-batched path.", which)
+        seq = False
     t, h, w = lq.shape[:3]
     win = all_windows(t, n_frames, padding)
-    apply = make_model_apply("EDVR", scale)
+    apply = make_model_apply(which, scale)
+    mutable = (make_mutable_model_apply(which, scale)
+               if resolve_bn_mode(cfg.bn_mode, vsr) == "train_ema" else None)
     adapt_windows = torch.as_tensor(lq[win[: min(n_adapt, t)]], device=device)
     with torch.no_grad():
         slr_windows = est(adapt_windows)
     lr_centers = adapt_windows[:, n_frames // 2]
     if seq:
         # Mod-pad the clip once: the same math as padding each window.
-        mod = arch_mod("EDVR")
+        mod = arch_mod(which)
         ph, pw = (-h) % mod, (-w) % mod
         frames = np.pad(lq, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="reflect") \
             if ph or pw else lq
-        run = make_adapt_and_infer_seq(cfg, apply_fn=apply)
+        run = make_adapt_and_infer_seq(cfg, apply_fn=apply, mutable_apply_fn=mutable)
         sr, losses = run(vsr, slr_windows, lr_centers, torch.as_tensor(frames, device=device),
                          torch.as_tensor(win, dtype=torch.long, device=device))
         sr = sr[:, : h * scale, : w * scale]
     else:
-        run = make_adapt_and_infer(cfg, apply_fn=apply)
+        run = make_adapt_and_infer(cfg, apply_fn=apply, mutable_apply_fn=mutable)
         sr, losses = run(vsr, slr_windows, lr_centers, torch.as_tensor(lq[win], device=device))
     sr = sr.cpu().numpy()
     res = score_frames(sr, gt, ycbcr=ycbcr, crop_border=crop_border, save_dir=save_dir)
@@ -78,39 +93,12 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
     return sr, res
 
 
-_DTYPES = {None: None, "float32": None, "fp32": None,
-           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
-
-
-def build_edvr(opt_net, device=None) -> EDVR:
-    """EDVR from a `network_G` config block (models/networks.py:define_G),
-    on `device` (default: cuda)."""
-    device = resolve_device(device)
-    if opt_net.get("which_model_G") != "EDVR":
-        raise NotImplementedError(
-            f"{opt_net.get('which_model_G')} is not ported yet (ROADMAP: TOF, DUF)")
-    if opt_net.get("s2d_conv"):
-        raise NotImplementedError("network_G.s2d_conv is not ported yet (ROADMAP: conv_s2d)")
-    if opt_net.get("dtype") not in _DTYPES:
-        raise ValueError(f"unknown network dtype {opt_net.get('dtype')!r}")
-    return EDVR(
-        nf=opt_net.get("nf", 64), nframes=opt_net.get("nframes", 5),
-        groups=opt_net.get("groups", 8), front_RBs=opt_net.get("front_RBs", 5),
-        back_RBs=opt_net.get("back_RBs", 10), center=opt_net.get("center"),
-        predeblur=bool(opt_net.get("predeblur", False)),
-        hr_in=bool(opt_net.get("HR_in", False)),
-        w_TSA=opt_net.get("w_TSA", True) is not False,
-        dtype=_DTYPES[opt_net.get("dtype")]).to(device)
-
-
 def build_mfdn(opt_est, scale: int, nframes: int, device=None) -> MFDN:
     """MFDN from a `network_E` config block, on `device` (default: cuda),
     in eval mode."""
-    device = resolve_device(device)
-    if (opt_est.get("which_model_G") or "MFDN") != "MFDN":
-        raise NotImplementedError(
-            f"{opt_est.get('which_model_G')} is not ported yet (ROADMAP: SFDN)")
-    return MFDN(scale=scale, nf=opt_est.get("nf", 64), nframes=nframes).to(device).eval()
+    opt_est = {**opt_est, "which_model_G": opt_est.get("which_model_G") or "MFDN",
+               "nframes": nframes}
+    return define_G({"scale": scale, "network_G": opt_est}, device).eval()
 
 
 def adapt_config(a) -> AdaptConfig:
@@ -121,6 +109,7 @@ def adapt_config(a) -> AdaptConfig:
         lr=1e-6 if a.get("lr") is None else float(a["lr"]),
         optimizer=a.get("optimizer") or "adam",
         infer_chunk=8 if ic is None else int(ic),
+        bn_mode=a.get("bn_mode") or "auto",
     )
 
 
@@ -161,9 +150,8 @@ def main(argv=None):
         raise NotImplementedError("eval.tile is not yet ported")
 
     scale = opt.get("scale", 4)
-    opt_net = opt["network_G"] or {}
-    n_frames = opt_net.get("nframes", 5)
-    vsr = build_edvr(opt_net, device)
+    n_frames = (opt["network_G"] or {}).get("nframes", 5)
+    vsr = define_G(opt, device)
     est = build_mfdn(opt.get("network_E") or {}, scale, n_frames, device)
     _load_pth(vsr, opt["path"].get("pretrain_model_G"))
     _load_pth(est, opt["path"].get("pretrain_model_E"))

@@ -9,6 +9,9 @@ mechanical:
   pcd_align/L1_dcnpack/weight (HWIO)       -> pcd_align.L1_dcnpack.weight (OIHW)
   feature_extraction/blocks/block/conv1/kernel, stacked on axis 0
                                            -> feature_extraction.{i}.conv1.weight
+  spynet/block0/bn0/scale                  -> spynet.block0.bn0.weight
+  batch_stats: spynet/block0/bn0/mean, var -> spynet.block0.bn0.running_mean,
+                                              running_var (+ num_batches_tracked 0)
 
 A reference `.pth` needs no conversion: strip the `module.` prefix and
 `load_state_dict` it.
@@ -39,27 +42,26 @@ def _to_torch(arr: np.ndarray, leaf: str) -> torch.Tensor:
     return torch.tensor(a, dtype=torch.float32)
 
 
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight"}
+_STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
+
+
 def jax_params_to_state_dict(params: Mapping,
                              expected: Optional[Mapping[str, torch.Tensor]] = None
                              ) -> Dict[str, torch.Tensor]:
-    """params: nested dict of numpy arrays (optionally under 'params').
+    """params: nested dict of numpy arrays; either the params tree itself or
+    a flax variables dict {'params': ..., 'batch_stats': ...}. BatchNorm
+    statistics become running_mean / running_var, each with a
+    num_batches_tracked of 0.
 
     With `expected` (a module's state_dict), raise KeyError on a key missing
     from either side and ValueError on a shape mismatch."""
-    if "params" in params and len(params) == 1:
-        params = params["params"]
+    roots = {"params": params}
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        roots = {k: params[k] for k in params}
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params):
-        *mods, name = path
-        torch_leaf = "weight" if name == "kernel" else name
-        if "blocks" in mods:
-            i_b = mods.index("blocks")
-            prefix, suffix = mods[:i_b], [m for m in mods[i_b + 1:] if m != "block"]
-            for i, block in enumerate(np.asarray(leaf)):
-                key = ".".join(prefix + [str(i)] + suffix + [torch_leaf])
-                out[key] = _to_torch(block, name)
-        else:
-            out[".".join(mods + [torch_leaf])] = _to_torch(leaf, name)
+    for root, tree in roots.items():
+        _convert(tree, _STATS_LEAF if root == "batch_stats" else _PARAM_LEAF, out)
     if expected is not None:
         missing = sorted(set(expected) - set(out))
         extra = sorted(set(out) - set(expected))
@@ -71,6 +73,23 @@ def jax_params_to_state_dict(params: Mapping,
                 raise ValueError(f"{k}: converted shape {tuple(v.shape)}, model wants "
                                  f"{tuple(expected[k].shape)}")
     return out
+
+
+def _convert(tree: Mapping, leaf_names: Mapping[str, str], out: Dict[str, torch.Tensor]):
+    for path, leaf in _flatten(tree):
+        *mods, name = path
+        torch_leaf = leaf_names.get(name, name)
+        if "blocks" in mods:
+            i_b = mods.index("blocks")
+            prefix, suffix = mods[:i_b], [m for m in mods[i_b + 1:] if m != "block"]
+            items = [(prefix + [str(i)] + suffix, block)
+                     for i, block in enumerate(np.asarray(leaf))]
+        else:
+            items = [(mods, leaf)]
+        for module, value in items:
+            out[".".join(module + [torch_leaf])] = _to_torch(value, name)
+            if torch_leaf == "running_mean":
+                out[".".join(module + ["num_batches_tracked"])] = torch.tensor(0)
 
 
 def strip_module_prefix(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

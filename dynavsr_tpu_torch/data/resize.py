@@ -64,6 +64,16 @@ def _out_len(in_len: int, scale: float) -> int:
     return int(np.ceil(in_len * scale))
 
 
+@functools.lru_cache(maxsize=64)
+def _device_weights(in_len: int, out_len: int, antialiasing: bool,
+                    device: torch.device) -> torch.Tensor:
+    """resize_weights as an fp32 tensor on `device`, copied there once: a
+    copy from pageable host memory would wait for the device's queue to
+    drain at every call."""
+    return torch.as_tensor(resize_weights(in_len, out_len, antialiasing),
+                           dtype=torch.float32, device=device)
+
+
 def imresize(img: torch.Tensor, scale: float, antialiasing: bool = True) -> torch.Tensor:
     """MATLAB-parity bicubic resize of a (..., H, W, C) tensor, in fp32."""
     if img.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -71,10 +81,8 @@ def imresize(img: torch.Tensor, scale: float, antialiasing: bool = True) -> torc
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     h, w = img.shape[-3], img.shape[-2]
     oh, ow = _out_len(h, scale), _out_len(w, scale)
-    wh = torch.as_tensor(resize_weights(h, oh, antialiasing), dtype=torch.float32,
-                         device=img.device)
-    ww = torch.as_tensor(resize_weights(w, ow, antialiasing), dtype=torch.float32,
-                         device=img.device)
+    wh = _device_weights(h, oh, antialiasing, img.device)
+    ww = _device_weights(w, ow, antialiasing, img.device)
     x = img.to(torch.float32).movedim(-1, -3)  # (..., C, H, W)
     x = torch.matmul(torch.matmul(wh, x), ww.t())
     x = x.movedim(-3, -1)

@@ -5,7 +5,8 @@
 the input, to bf16 for the conv, whose output stays bf16 (flax
 `nn.Conv(dtype=bfloat16)` semantics). Residual trunks are `nn.Sequential`s
 with the reference's `{name}.{i}.conv1.weight` keys; the JAX package stacks
-the same tensors on a leading axis (nn.scan).
+the same tensors on a leading axis (nn.scan). `BatchNorm2d` is flax's
+BatchNorm under torch's state_dict keys.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Conv2d", "conv", "ResidualBlockNoBN", "ResTrunk", "lrelu",
-           "interpolate_bilinear", "max_pool_3x3_s2", "avg_pool_3x3_s2"]
+__all__ = ["Conv2d", "conv", "BatchNorm2d", "ResidualBlockNoBN", "ResTrunk", "lrelu",
+           "interpolate_bilinear", "max_pool_3x3_s2", "avg_pool_3x3_s2", "avg_pool2"]
 
 
 class Conv2d(nn.Conv2d):
@@ -39,6 +40,35 @@ def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1,
          dtype: Optional[torch.dtype] = None) -> Conv2d:
     """Conv with torch-style symmetric padding (kernel - 1) // 2."""
     return Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, compute_dtype=dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Batch normalisation as the JAX package's flax `nn.BatchNorm`
+    (momentum 0.9, eps 1e-5), with `nn.BatchNorm2d`'s parameters, buffers
+    and state_dict keys, so a reference `.pth` loads.
+
+    Two differences from `nn.BatchNorm2d`: the statistics and the
+    normalisation are computed in fp32 whatever the input's dtype, and the
+    train-mode update of `running_var` uses the *biased* batch variance
+    (flax: ra_var = 0.9 ra_var + 0.1 var, no Bessel factor; torch would
+    take var * n / (n - 1)). The output has the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if not self.training:
+            y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y.to(x.dtype)
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -81,3 +111,8 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """nn.AvgPool2d(3, stride=2, padding=1), count_include_pad=True."""
     return F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool (SpyNet's pyramid)."""
+    return F.avg_pool2d(x, 2)

@@ -164,6 +164,8 @@ class EDVR(nn.Module):
       once and shared by every sliding window that holds it (exact).
     """
 
+    arch = "EDVR"  # its input convention (models/padding.py)
+
     def __init__(self, nf: int = 64, nframes: int = 5, groups: int = 8,
                  front_RBs: int = 5, back_RBs: int = 10, center: Optional[int] = None,
                  predeblur: bool = False, hr_in: bool = False, w_TSA: bool = True,

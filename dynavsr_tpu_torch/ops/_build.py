@@ -17,12 +17,15 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build", "load"]
+import torch
+
+__all__ = ["SOURCES", "build", "load", "stream", "raise_if"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("dcn_fwd", "dcn_bwd")
-_HEADERS = ("dcn_common.cuh",)
+SOURCES = ("dcn_fwd", "dcn_bwd", "warp_fwd", "warp_bwd")
+_HEADERS = {"dcn_fwd": ("dcn_common.cuh",), "dcn_bwd": ("dcn_common.cuh",),
+            "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",)}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,19 +37,21 @@ _SIGNATURES = {
     "dcn_fwd": [_VP] * 6 + [_I] * 7 + [_VP],
     "dcn_bwd_data": [_VP] * 8 + [_I] * 7 + [_VP],
     "dcn_bwd_weight": [_VP] * 5 + [_I] * 7 + [_VP],
+    "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
+    "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
 }
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.access(path, os.X_OK):
-        raise RuntimeError("nvcc not found: the DCN kernels cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for f in (f"{name}.cu",) + _HEADERS:
+    for f in (f"{name}.cu",) + _HEADERS[name]:
         h.update((_CSRC / f).read_bytes())
     return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -90,3 +95,13 @@ def load(name: str) -> ctypes.CDLL:
         _LIBS[name] = lib
     return lib
 
+
+def stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of x's device, as a launcher's last argument."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def raise_if(rc: int, name: str) -> None:
+    """Raise on a launcher's nonzero cudaError."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")

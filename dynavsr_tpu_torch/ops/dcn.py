@@ -72,15 +72,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_if(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-
-
 def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tensor:
     """K1: the forward on CUDA tensors (3x3, stride 1, padding 1)."""
     global fwd_launches
@@ -92,8 +83,8 @@ def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tens
     lib = _build.load("dcn_fwd")
     rc = lib.dcn_fwd(x.data_ptr(), offset.data_ptr(), _ptr(mask), wt.data_ptr(),
                      _ptr(bias), out.data_ptr(), b, c, h, w, cout, deformable_groups,
-                     _DTYPES[x.dtype], _stream(x))
-    _raise_if(rc, "dcn_fwd")
+                     _DTYPES[x.dtype], _build.stream(x))
+    _build.raise_if(rc, "dcn_fwd")
     fwd_launches += 1
     return out
 
@@ -114,8 +105,9 @@ def dcn_bwd_data(x, offset, mask, weight, grad_out, deformable_groups: int):
     lib = _build.load("dcn_bwd")
     rc = lib.dcn_bwd_data(x.data_ptr(), offset.data_ptr(), _ptr(mask), wt2.data_ptr(),
                           grad_out.data_ptr(), gx.data_ptr(), goff.data_ptr(), _ptr(gmask),
-                          b, c, h, w, cout, deformable_groups, _DTYPES[x.dtype], _stream(x))
-    _raise_if(rc, "dcn_bwd_data")
+                          b, c, h, w, cout, deformable_groups, _DTYPES[x.dtype],
+                          _build.stream(x))
+    _build.raise_if(rc, "dcn_bwd_data")
     bwd_data_launches += 1
     return (gx.to(x.dtype), goff.to(offset.dtype),
             None if gmask is None else gmask.to(mask.dtype))
@@ -132,8 +124,8 @@ def dcn_bwd_weight(x, offset, mask, grad_out, deformable_groups: int) -> torch.T
     lib = _build.load("dcn_bwd")
     rc = lib.dcn_bwd_weight(x.data_ptr(), offset.data_ptr(), _ptr(mask),
                             grad_out.data_ptr(), gw.data_ptr(), b, c, h, w, cout,
-                            deformable_groups, _DTYPES[x.dtype], _stream(x))
-    _raise_if(rc, "dcn_bwd_weight")
+                            deformable_groups, _DTYPES[x.dtype], _build.stream(x))
+    _build.raise_if(rc, "dcn_bwd_weight")
     bwd_weight_launches += 1
     return gw.to(x.dtype)
 

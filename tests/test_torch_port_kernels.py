@@ -1,5 +1,6 @@
-"""The CUDA DCN kernels (K1 dcn_fwd, K2 dcn_bwd_data, K3 dcn_bwd_weight)
-against the plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+DCN's K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight (ops/dcn_ref.py),
+and the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py).
 
 Every test here is gpu-marked and skips without a card. This file imports no JAX, so on
 the card it runs without the repository's conftest:
@@ -10,13 +11,17 @@ Tolerances: fp32 — the kernels and dcn_ref do the same fp32 arithmetic in
 another order (atomics in K2/K3 change it from run to run), so 1e-4 of the
 largest reference value (TF32 off). bf16 — both sides read the same bf16
 inputs; the reference runs in fp32 on them and the kernels round their
-fp32 results to bf16 once, so 2^-7 of the largest reference value.
+fp32 results to bf16 once, so 2^-7 of the largest reference value. Warp
+(fp32 only): forward 1e-5 of the largest reference value (the same four
+products, maybe fused into FMAs); grad flow and grad x 1e-4 (grad x lands
+with atomics, in another order).
 """
 
 import pytest
 import torch
 
-from dynavsr_tpu_torch.ops import dcn
+from dynavsr_tpu_torch.ops import dcn, grid_sample_ref
+from dynavsr_tpu_torch.ops import grid_sample as warp
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
 
 
@@ -107,3 +112,87 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         dcn.dcn_fwd(x, offset[:, :9], mask, weight, bias, 2)
     with pytest.raises(ValueError, match="must be on"):
         dcn.dcn_fwd(x, offset.cpu(), mask, weight, bias, 2)
+
+
+def _warp_inputs(b, c, h, w, device, seed):
+    """White-noise flows N(0, 4^2) px (many samples partly or wholly
+    outside the frame), integer on every third row."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g)
+    flow = torch.randn(b, 2, h, w, generator=g) * 4.0
+    flow[:, :, ::3] = flow[:, :, ::3].round()
+    cot = torch.randn(b, c, h, w, generator=g)
+    return [t.to(device) for t in (x, flow, cot)]
+
+
+def _plain_warp_grads(x, flow, cot):
+    xr, fr = (t.detach().clone().requires_grad_() for t in (x, flow))
+    out = grid_sample_ref.warp_nchw(xr, fr)
+    out.backward(cot)
+    return out.detach(), xr.grad, fr.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 13, 21), (8, 3, 36, 44), (3, 5, 7, 9), (1, 3, 1, 64)],
+                         ids=["c3", "adapt36x44", "c5", "one_row"])
+def test_warp_kernels_match_plain(cuda, shape):
+    x, flow, cot = _warp_inputs(*shape, cuda, seed=sum(shape))
+    ref, ref_gx, ref_gf = _plain_warp_grads(x, flow, cot)
+    out = warp.warp_fwd(x, flow)
+    gx, gf = warp.warp_bwd(x, flow, cot, need_x=True)
+    none, gf_only = warp.warp_bwd(x, flow, cot, need_x=False)
+    torch.cuda.synchronize()
+    assert none is None
+    _close(out, ref, 1e-5)
+    _close(gf, ref_gf, 1e-4)
+    _close(gx, ref_gx, 1e-4)
+    assert torch.equal(gf_only, gf)  # a gather: no atomics, the same order
+
+
+@pytest.mark.gpu
+def test_warp_kernel_far_outside_positions_give_exact_zeros(cuda):
+    x, _, cot = _warp_inputs(2, 3, 9, 11, cuda, seed=1)
+    flow = torch.zeros(2, 2, 9, 11, device=cuda)
+    flow[0, 0], flow[0, 1], flow[1, 0], flow[1, 1] = 1e30, -1e30, -1e30, 3e9
+    out = warp.warp_fwd(x, flow)
+    gx, gf = warp.warp_bwd(x, flow, cot, need_x=True)
+    torch.cuda.synchronize()
+    assert not out.any() and not gx.any() and not gf.any()
+
+
+@pytest.mark.gpu
+def test_warp_autograd_goes_through_the_kernels(cuda):
+    """Flow needs a gradient, x does not (TOF's adaptation): one K4, one K5,
+    no grad x; then both, through the NHWC flow_warp."""
+    x, flow, cot = _warp_inputs(2, 3, 8, 12, cuda, seed=4)
+    f = flow.clone().requires_grad_()
+    warp.reset_launch_counts()
+    warp.warp_nchw(x, f).backward(cot)
+    assert warp.launch_counts() == {"warp_fwd": 1, "warp_bwd": 1}
+    _, ref_gx, ref_gf = _plain_warp_grads(x, flow, cot)
+    _close(f.grad, ref_gf, 1e-4)
+    xs, fs = (t.permute(0, 2, 3, 1).clone().requires_grad_() for t in (x, flow))
+    warp.flow_warp(xs, fs).backward(cot.permute(0, 2, 3, 1))
+    assert warp.launch_counts() == {"warp_fwd": 2, "warp_bwd": 2}
+    _close(xs.grad.permute(0, 3, 1, 2), ref_gx, 1e-4)
+    _close(fs.grad.permute(0, 3, 1, 2), ref_gf, 1e-4)
+    with torch.no_grad():
+        warp.warp_nchw(x, flow)
+    assert warp.launch_counts() == {"warp_fwd": 3, "warp_bwd": 2}
+
+
+@pytest.mark.gpu
+def test_warp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, flow, cot = _warp_inputs(1, 3, 8, 8, cuda, seed=5)
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_fwd(x.bfloat16(), flow)
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_fwd(x, flow.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp.warp_fwd(x.transpose(2, 3), flow)
+    with pytest.raises(ValueError, match="does not fit"):
+        warp.warp_fwd(x, flow[:, :, :4])
+    with pytest.raises(ValueError, match="must be on"):
+        warp.warp_fwd(x, flow.cpu())
+    with pytest.raises(ValueError, match="grad_out"):
+        warp.warp_bwd(x, flow, cot[:, :2], need_x=True)

@@ -73,7 +73,8 @@ TINY_G = {"which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RB
 def test_entry_points_refuse_the_cpu_unless_asked():
     from dynavsr_tpu_torch import resolve_device
     from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
-    from dynavsr_tpu_torch.cli.test_dynavsr import build_edvr, build_mfdn, main, run_clip
+    from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, main, run_clip
+    from dynavsr_tpu_torch.models.networks import define_G
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -82,10 +83,11 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["-opt", str(ROOT / "configs/test/test_DynaVSR_Vid4.yml")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_edvr(TINY_G)
+        define_G({"network_G": TINY_G})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_mfdn({"nf": 8}, 4, 3)
-    vsr, est = build_edvr(TINY_G, device="cpu"), build_mfdn({"nf": 8}, 4, 3, device="cpu")
+    vsr = define_G({"network_G": TINY_G}, device="cpu")
+    est = build_mfdn({"nf": 8}, 4, 3, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_clip(vsr, est, np.zeros((3, 8, 8, 3), np.float32), None, AdaptConfig(n_steps=1),
                  seq=False, n_frames=3, padding="reflection", n_adapt=1)
@@ -96,9 +98,11 @@ def test_run_clip_refuses_modules_off_its_device():
     """The models are built on the CPU; a clip asked to run elsewhere raises
     rather than moving them or running where they are."""
     from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
-    from dynavsr_tpu_torch.cli.test_dynavsr import build_edvr, build_mfdn, run_clip
+    from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, run_clip
+    from dynavsr_tpu_torch.models.networks import define_G
 
-    vsr, est = build_edvr(TINY_G, device="cpu"), build_mfdn({"nf": 8}, 4, 3, device="cpu")
+    vsr = define_G({"network_G": TINY_G}, device="cpu")
+    est = build_mfdn({"nf": 8}, 4, 3, device="cpu")
     assert {p.device.type for p in [*vsr.parameters(), *est.parameters()]} == {"cpu"}
     assert not est.training
     with pytest.raises(ValueError, match="vsr is on cpu"):
