@@ -6,7 +6,7 @@
 Phases; any failure raises and exits non-zero:
   1. device   the card's name, count, and nvidia-smi's name and power limit
               (no card: exit 2, no result printed);
-  2. build    nvcc builds the kernels K1-K5 from csrc/ (one process per
+  2. build    nvcc builds the kernels K1-K7 from csrc/ (one process per
               source, in parallel) and prints ptxas' register/smem lines;
   3. kernels  K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight against the
               plain PyTorch version (ops/dcn_ref.py and its autograd) at
@@ -16,8 +16,13 @@ Phases; any failure raises and exits non-zero:
               reach outside the image; K4 warp_fwd and K5 warp_bwd (grad
               flow and grad x) against ops/grid_sample_ref.py at one
               adaptation shape (8 frames of 144x176) and one inference
-              shape (8 of 576x704), on white-noise flows N(0, 4^2) px
-              (correctness checks, not timed);
+              shape (8 of 576x704), on white-noise flows N(0, 4^2) px;
+              K6 duf_fwd and K7 duf_bwd (grad filters, and grad x on
+              request) against ops/duf_filter_ref.py at DUF's adaptation
+              shape (8 SLR windows of 36x44) and inference shape (8
+              windows of 144x176), R = 16, fp32 and bf16 filters, both
+              softmaxed and raw N(0, 1) filters (correctness checks, not
+              timed);
   4. main     the DynaVSR adapt-and-infer loop at full EDVR-M x4 + MFDN
               width (configs/test/test_DynaVSR_Vid4.yml), random weights
               from a seed, on a synthetic 16-frame 144x176 clip, through
@@ -36,14 +41,27 @@ Phases; any failure raises and exits non-zero:
               statistics unchanged, and one window of TOF with the kernels
               against TOF with the plain warp; then one clip per dtype under
               torch.profiler and one whose warp calls are recorded;
-  6. timing   each kernel, checked again and timed with CUDA events on the
+  6. DUF      the DynaVSR-DUF loop at full DUF-16L width (7 frames, 64-ch
+              stem, growth 32, 3 + 3 dense layers, 256/512-ch heads; MFDN
+              nf 64; train_ema BatchNorm adaptation) on the same clip with
+              LR = the port's duf_downsample(HR), through run_clip,
+              window-batched, fp32 and bf16. Checks finite losses, K6 = 7
+              and K7 = 5 launches a clip and none of K1-K5, the meta
+              model's running statistics unchanged, and one window of DUF
+              with the kernels against DUF with the plain filter; scores
+              with crop 8 (DUF's convention); then one clip per dtype
+              under torch.profiler and one whose filter calls are recorded;
+  7. timing   each kernel, checked again and timed with CUDA events on the
               inputs the main paths gave it (every distinct DCN call of a
               window-batched EDVR clip: offsets, masks and gradients from the
               network itself; every distinct warp call of a TOF clip: flows
-              from SpyNet, gradients from the adaptation loss), beside the
-              plain version and, for K4 / K5, F.grid_sample; their sum over a
-              clip's launches is set beside the profiler's device time for
-              the same kernels.
+              from SpyNet, gradients from the adaptation loss; every
+              distinct filter call of a DUF clip: filters from the head,
+              gradients from the adaptation loss), beside the plain version
+              and, for K4 / K5, F.grid_sample, for K6 / K7 the nearest
+              library composite (F.unfold + einsum: two calls, so no
+              library_ms); their sum over a clip's launches is set beside
+              the profiler's device time for the same kernels.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -64,17 +82,20 @@ import torch.nn.functional as F
 
 from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
 from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, run_clip
+from dynavsr_tpu_torch.data.degradations import duf_downsample
 from dynavsr_tpu_torch.data.resize import imresize
 from dynavsr_tpu_torch.data.windows import all_windows
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import score_frames
+from dynavsr_tpu_torch.models import duf as duf_module
 from dynavsr_tpu_torch.models import edvr as edvr_module
 from dynavsr_tpu_torch.models import tof as tof_module
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import make_model_apply
-from dynavsr_tpu_torch.ops import _build, dcn, grid_sample_ref
+from dynavsr_tpu_torch.ops import _build, dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
+from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -111,6 +132,15 @@ def warp_label(kind: str, shape) -> str:
 
 WARP_SHAPES = {warp_label("adapt", WARP_ADAPT): WARP_ADAPT,
                warp_label("infer", WARP_INFER): WARP_INFER}
+
+# The DynaVSR-DUF path (configs/test/test_DUF_Vid4.yml's network, 7 frames):
+# the filter runs on the centre frame, 8 SLR windows of 36x44 in
+# adaptation and chunks of 8 windows of 144x176 in inference, R = 16.
+DUF_G = {"which_model_G": "DUF_16L", "nframes": 7}
+DUF_FRAMES, DUF_CROP, DUF_R = 7, 8, SCALE * SCALE
+DUF_ADAPT, DUF_INFER = (8, 3, LR_H // 4, LR_W // 4), (8, 3, LR_H, LR_W)
+DUF_SHAPES = {warp_label("adapt", DUF_ADAPT): DUF_ADAPT,
+              warp_label("infer", DUF_INFER): DUF_INFER}
 # name: (source, the call whose timing stands in the JSON line, the TPU kernel it replaces)
 KERNELS = {
     "dcn_fwd": ("dynavsr_tpu_torch/csrc/dcn_fwd.cu", dcn_label("infer", INFER_L1),
@@ -123,18 +153,24 @@ KERNELS = {
                  "dynavsr_tpu/ops/grid_sample.py:54"),
     "warp_bwd": ("dynavsr_tpu_torch/csrc/warp_bwd.cu", warp_label("adapt", WARP_ADAPT),
                  "dynavsr_tpu/ops/grid_sample.py:54"),
+    "duf_fwd": ("dynavsr_tpu_torch/csrc/duf_fwd.cu", warp_label("infer", DUF_INFER),
+                "dynavsr_tpu/models/duf.py:47"),
+    "duf_bwd": ("dynavsr_tpu_torch/csrc/duf_bwd.cu", warp_label("adapt", DUF_ADAPT),
+                "dynavsr_tpu/models/duf.py:47"),
 }
 DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
+DUF_KERNELS = ("duf_fwd", "duf_bwd")
 
 
 def reset_all_counts() -> None:
     dcn.reset_launch_counts()
     warp.reset_launch_counts()
+    duf_filter.reset_launch_counts()
 
 
 def all_counts() -> dict:
-    return {**dcn.launch_counts(), **warp.launch_counts()}
+    return {**dcn.launch_counts(), **warp.launch_counts(), **duf_filter.launch_counts()}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -368,6 +404,98 @@ def warp_against_plain(label, x, flow, cot, need_x, timed):
     return rows
 
 
+def duf_bound(shape, r, fdtype):
+    """(bound_ms, bound_by, bytes, flops) of one K6 call, or one K7 call for
+    grad filters only, on fp32 (B, C, H, W) x and (B, 25, R, H, W) filters:
+    each input read once, each output written once. Both move the same
+    bytes: K6 reads x and the filters and writes C R planes, K7 reads x and
+    the gradient (C R planes) and writes grad filters. Operations: the
+    25-tap sum, 2 B H W C R 25, fp32."""
+    b, c, h, w = shape
+    px, fe = b * h * w, torch.finfo(fdtype).bits // 8
+    nbytes = px * c * 4 + px * 25 * r * fe + px * c * r * 4
+    flops = 2 * px * c * r * 25
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def duf_composite(name, x, f, cot):
+    """The nearest library composite of K6 / K7 (F.unfold + torch.einsum;
+    two calls, plus a cast of bf16 filters): the forward, or grad filters."""
+    b, c, h, w = x.shape
+    r = f.shape[2]
+    patches = F.unfold(x, 5, padding=2).view(b, c, 25, h, w)
+    if name == "duf_fwd":
+        return torch.einsum("bckhw,bkrhw->bcrhw", patches, f.float()).reshape(b, c * r, h, w)
+    return torch.einsum("bckhw,bcrhw->bkrhw", patches, cot.view(b, c, r, h, w)).to(f.dtype)
+
+
+def duf_against_plain(label, x, f, cot, need_x, timed):
+    """Hold K6 (and K7 when a cotangent is given) against the plain version
+    (ops/duf_filter_ref.py and its autograd) on the same inputs and raise if
+    one disagrees: 1e-5 of the largest reference value (fp32 sums in
+    another order); bf16 filters' gradients are rounded to bf16 on both
+    sides, so there each value may also be one bf16 step (2^-7 of it) off.
+    With `timed`, time the wrappers, the plain version and the library
+    composite (checked to agree as well)."""
+    shape, fdtype = tuple(x.shape), f.dtype
+    x_r = x.detach().clone().requires_grad_(need_x)
+    f_r = f.detach().clone().requires_grad_()
+    ref = dynamic_upsampling_filter_ref(x_r, f_r)
+    got = {"duf_fwd": [duf_filter.duf_fwd(x, f)]}
+    want = {"duf_fwd": [ref.detach()]}
+    wrt = [f_r, x_r] if need_x else [f_r]
+    if cot is not None:
+        gx, gf = duf_filter.duf_bwd(x, f, cot, need_x=need_x)
+        got["duf_bwd"] = [gf] + ([gx] if need_x else [])
+        want["duf_bwd"] = list(torch.autograd.grad(ref, wrt, cot, retain_graph=True))
+    torch.cuda.synchronize()
+
+    def within(g, r):
+        """(max |g - r|, every value within tolerance, max |r|)."""
+        rtol = 2 ** -7 if g.dtype == torch.bfloat16 else 0.0  # one bf16 step
+        scale = float(r.float().abs().max())
+        d = (g.float() - r.float()).abs()
+        return float(d.max()), bool((d <= rtol * r.float().abs() + 1e-5 * scale).all()), scale
+
+    rows = []
+    for name in got:
+        res = [within(g, r) for g, r in zip(got[name], want[name])]
+        err, ok, scale = max(v[0] for v in res), all(v[1] for v in res), max(v[2] for v in res)
+        row = dict(name=name, label=label, dims=list(shape), r=f.shape[2],
+                   dtype=str(fdtype).replace("torch.", ""), need_x=need_x, max_abs_err=err,
+                   tol=1e-5 * scale)
+        what = f"{row['dtype']} filters{' +grad x' if need_x and name == 'duf_bwd' else ''}"
+        step = " + 2^-7 |ref|" if got[name][0].dtype == torch.bfloat16 else ""
+        line = (f"{name:14s} {label} {shape} R={f.shape[2]} {what} max|err| {err:.3e} "
+                f"(tol {1e-5 * scale:.3e}{step}) {'ok' if ok else 'FAIL'}")
+        if timed:
+            comp = duf_composite(name, x, f, cot)
+            comp_err, comp_ok, _ = within(comp, want[name][0])
+            check(comp_ok, f"{name} {label}: the unfold + einsum composite differs by {comp_err}")
+            if name == "duf_fwd":
+                ms = cuda_ms(lambda: duf_filter.duf_fwd(x, f), reps=20)
+                plain_ms = cuda_ms(lambda: dynamic_upsampling_filter_ref(x, f), reps=5)
+            else:
+                ms = cuda_ms(lambda: duf_filter.duf_bwd(x, f, cot, need_x=need_x), reps=20)
+                plain_ms = cuda_ms(lambda: torch.autograd.grad(ref, wrt, cot, retain_graph=True),
+                                   reps=5)
+            composite_ms = cuda_ms(lambda: duf_composite(name, x, f, cot), reps=20)
+            check(not need_x, "the timed K7 computes grad filters only, as on DUF's path")
+            bound_ms, bound_by, nbytes, flops = duf_bound(shape, f.shape[2], fdtype)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=None, composite_ms=composite_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                       gb_per_s=nbytes / ms / 1e6, roofline=bound_ms / ms)
+            line += (f"  {ms:.4f} ms  plain {plain_ms:.4f} ms  library none (one call); "
+                     f"unfold+einsum {composite_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}: "
+                     f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
+                     f"{row['gb_per_s']:.0f} GB/s  roofline {row['roofline']:.1%}")
+        print(f"[{'timing' if timed else 'kernel'}] {line}")
+        check(ok, f"{name} {label} {shape} {fdtype}: {err} > tolerance")
+        rows.append(row)
+    return rows
+
+
 def phase_kernels() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for shape_name, shape in DCN_SHAPES.items():
@@ -383,6 +511,16 @@ def phase_kernels() -> None:
         cot = torch.randn(*shape, generator=gen, device="cuda")
         warp_against_plain(label, x, flow, cot, need_x=True, timed=False)
         del x, flow, cot
+        torch.cuda.empty_cache()
+    for label, (b, c, h, w) in DUF_SHAPES.items():
+        for fdtype in (torch.float32, torch.bfloat16):
+            for kind in ("softmax", "raw"):
+                x = torch.rand(b, c, h, w, generator=gen, device="cuda")
+                f = torch.randn(b, 25, DUF_R, h, w, generator=gen, device="cuda")
+                f = (torch.softmax(f, dim=1) if kind == "softmax" else f).to(fdtype)
+                cot = torch.randn(b, c * DUF_R, h, w, generator=gen, device="cuda")
+                duf_against_plain(f"{label} {kind}", x, f, cot, need_x=True, timed=False)
+                del x, f, cot
         torch.cuda.empty_cache()
 
 
@@ -529,7 +667,7 @@ def record_dcn_calls(run) -> dict:
     return calls
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------- phases 5, 6
 def warp_launches_per_clip(cfg: AdaptConfig) -> dict:
     """K4 / K5 launches one window-batched TOF clip must make: every SpyNet
     call warps once per level, and each neighbour's frame is warped once
@@ -541,29 +679,43 @@ def warp_launches_per_clip(cfg: AdaptConfig) -> dict:
             "warp_bwd": cfg.n_steps * nbrs * SPY_LEVELS}
 
 
-def phase_tof(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
-    """The DynaVSR-TOF loop at full width, fp32 and bf16, window-batched."""
-    opt = {"scale": SCALE, "network_G": TOF_G}
-    tof32 = define_G(opt)  # the entry points' default device: the card
-    init_weights(tof32, gen)
-    tof16 = define_G({**opt, "network_G": {**TOF_G, "dtype": "bfloat16"}})
-    tof16.load_state_dict(tof32.state_dict())
-    est = build_mfdn({"nf": MFDN_NF}, SCALE, TOF_FRAMES)
+def duf_launches_per_clip(cfg: AdaptConfig) -> dict:
+    """K6 / K7 launches one window-batched DUF clip must make: one filter
+    per forward (each adaptation step and each inference chunk), one
+    backward per adaptation step."""
+    chunks = -(-CLIP_T // cfg.infer_chunk)
+    return {"duf_fwd": cfg.n_steps + chunks, "duf_bwd": cfg.n_steps}
+
+
+def phase_bn_net(tag: str, net_g: dict, frames: int, kernels, expect_fn, swap, smi: str,
+                 gen: torch.Generator, lq: np.ndarray, gt: np.ndarray, padding: str,
+                 crop: int):
+    """The DynaVSR loop for a BatchNorm backbone (TOF, DUF) at full width,
+    fp32 and bf16, window-batched, through run_clip. `kernels` are the
+    path's own, `expect_fn(cfg)` their launches a clip; `swap` = (module,
+    attribute, plain function) is the op that the one-window check runs
+    both through the kernels and through the plain version."""
+    opt = {"scale": SCALE, "network_G": net_g}
+    net32 = define_G(opt)  # the entry points' default device: the card
+    init_weights(net32, gen)
+    net16 = define_G({**opt, "network_G": {**net_g, "dtype": "bfloat16"}})
+    net16.load_state_dict(net32.state_dict())
+    est = build_mfdn({"nf": MFDN_NF}, SCALE, frames)
     init_weights(est, gen)
     cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
-    expect = warp_launches_per_clip(cfg)
-    stats0 = {k: v.clone() for k, v in tof32.state_dict().items() if "running" in k}
+    expect = expect_fn(cfg)
+    stats0 = {k: v.clone() for k, v in net32.state_dict().items() if "running" in k}
 
     def clip(model):
-        return run_clip(model, est, lq, None, cfg, seq=False, n_frames=TOF_FRAMES,
-                        padding="reflection", n_adapt=N_WINDOWS)
+        return run_clip(model, est, lq, None, cfg, seq=False, n_frames=frames,
+                        padding=padding, n_adapt=N_WINDOWS)
 
-    for model in (tof32, tof16):  # warm-up: cuDNN plans, kernel loads
+    for model in (net32, net16):  # warm-up: cuDNN plans, kernel loads
         clip(model)
 
     results, launches = {}, {}
-    for dt_name, model in (("fp32", tof32), ("bf16", tof16)):
-        mode = f"tof-{dt_name}-windows"
+    for dt_name, model in (("fp32", net32), ("bf16", net16)):
+        mode = f"{tag}-{dt_name}-windows"
         reset_all_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -575,70 +727,71 @@ def phase_tof(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
         check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
               f"{mode}: adaptation losses {losses}")
         check(sr.shape == gt.shape and bool(np.isfinite(sr).all()), f"{mode}: SR output")
-        for name in WARP_KERNELS:
+        for name in kernels:
             check(counts[name] == expect[name],
                   f"{mode}: {name} launched {counts[name]} times, a clip makes {expect[name]}")
-        for name in DCN_KERNELS:
-            check(counts[name] == 0, f"{mode}: TOF launched {name}")
+        for name in set(counts) - set(kernels):
+            check(counts[name] == 0, f"{mode}: {tag} launched {name}")
         if dt_name == "fp32":
             launches = counts
-        score = score_frames(sr, gt, ycbcr=True, crop_border=0)
+        score = score_frames(sr, gt, ycbcr=True, crop_border=crop)
         results[mode] = dict(fps=CLIP_T / secs, secs=secs, peak=peak, losses=losses,
                              counts=counts, psnr=score["psnr_avg"], ssim=score["ssim_avg"])
-        print(f"[tof] {mode:18s} {CLIP_T / secs:.3f} frames/s ({secs:.3f} s/clip) "
+        print(f"[{tag}] {mode:18s} {CLIP_T / secs:.3f} frames/s ({secs:.3f} s/clip) "
               f"peak {peak / 2**30:.2f} GiB  PSNR-Y {score['psnr_avg']:.3f} "
-              f"SSIM {score['ssim_avg']:.4f}  losses {[f'{v:.6f}' for v in losses]}  "
-              f"launches {({k: counts[k] for k in WARP_KERNELS})} (a clip makes {expect})  "
-              f"[{smi}]")
-    for k, v in tof32.state_dict().items():
+              f"SSIM {score['ssim_avg']:.4f} (crop {crop})  "
+              f"losses {[f'{v:.6f}' for v in losses]}  "
+              f"launches {({k: counts[k] for k in kernels})} (a clip makes {expect})  [{smi}]")
+    for k, v in net32.state_dict().items():
         if k in stats0:
             check(torch.equal(v, stats0[k]), f"the meta model's {k} moved: the copy leaked")
-    print("[tof] the meta model's BatchNorm running statistics are unchanged after the clips")
+    print(f"[{tag}] the meta model's BatchNorm running statistics are unchanged after the clips")
 
-    # One window through TOF with the kernels and with the plain warp.
-    win = torch.as_tensor(lq[all_windows(CLIP_T, TOF_FRAMES, "reflection")[:1]], device="cuda")
-    apply = make_model_apply("TOF", SCALE)
-    kernel_fn = tof_module.warp_nchw
+    # One window through the net with the kernels and with the plain op.
+    win = torch.as_tensor(lq[all_windows(CLIP_T, frames, padding)[:1]], device="cuda")
+    apply = make_model_apply(net32.arch, SCALE)
+    module, attr, plain_fn = swap
+    kernel_fn = getattr(module, attr)
     with torch.no_grad():
-        sr_kernel = apply(tof32, win)
-        tof_module.warp_nchw = grid_sample_ref.warp_nchw
+        sr_kernel = apply(net32, win)
+        setattr(module, attr, plain_fn)
         try:
-            sr_plain = apply(tof32, win)
+            sr_plain = apply(net32, win)
         finally:
-            tof_module.warp_nchw = kernel_fn
+            setattr(module, attr, kernel_fn)
     d_ref = float((sr_kernel - sr_plain).abs().max())
-    print(f"[tof] one window, kernels vs plain warp (fp32): max |SR diff| {d_ref:.3e} "
+    print(f"[{tag}] one window, kernels vs plain {attr} (fp32): max |SR diff| {d_ref:.3e} "
           "(limit 1e-4)")
-    check(d_ref <= 1e-4, f"TOF with the kernels differs from the plain warp by {d_ref}")
+    check(d_ref <= 1e-4, f"{tag} with the kernels differs from the plain {attr} by {d_ref}")
 
     profiles, calls = {}, {}
-    for dt_name, model in (("fp32", tof32), ("bf16", tof16)):
-        mode = f"tof-{dt_name}-windows"
+    for dt_name, model in (("fp32", net32), ("bf16", net16)):
+        mode = f"{tag}-{dt_name}-windows"
         profiles[dt_name] = results[mode]["profile"] = profile_clip(
-            lambda: clip(model), mode, smi, WARP_KERNELS)
-        calls[dt_name] = record_warp_calls(lambda: clip(model))
-        print(f"[tof] {mode} warp calls per clip: "
+            lambda: clip(model), mode, smi, kernels)
+        calls[dt_name] = record_calls(lambda: clip(model), module, attr)
+        print(f"[{tag}] {mode} {attr} calls per clip: "
               f"{ {k: (v['count'], v['bwd']) for k, v in calls[dt_name].items()} } "
-              "(kind BxHxW: (K4, K5))")
+              "(kind BxHxW: (forward, backward))")
     return launches, results, profiles, calls
 
 
-def record_warp_calls(run) -> dict:
-    """Run `run()` with TOFlow's warp calls recorded, by kind (adaptation
-    when autograd is on, else inference) and batch x height x width: how
-    many calls of that kind the run made and how many of them had a
-    backward, the first one's inputs and, where it had one, the gradient
-    that reached its output."""
+def record_calls(run, module, attr: str) -> dict:
+    """Run `run()` with the calls of `module.attr(x, second)` recorded (the
+    TOF warp, the DUF filter), by kind (adaptation when autograd is on, else
+    inference) and batch x height x width of x: how many calls of that kind
+    the run made and how many of them had a backward, the first one's
+    inputs and, where it had one, the gradient that reached its output."""
     calls = {}
-    kernel_fn = tof_module.warp_nchw
+    kernel_fn = getattr(module, attr)
 
-    def recording(x, flow):
-        out = kernel_fn(x, flow)
+    def recording(x, second):
+        out = kernel_fn(x, second)
         label = warp_label("adapt" if torch.is_grad_enabled() else "infer", x.shape)
         rec = calls.get(label)
         if rec is None:
             rec = calls[label] = dict(count=0, bwd=0, args=[x.detach().clone(),
-                                                            flow.detach().clone()])
+                                                            second.detach().clone()])
         rec["count"] += 1
         if out.requires_grad:
             rec["bwd"] += 1
@@ -647,15 +800,15 @@ def record_warp_calls(run) -> dict:
                 out.register_hook(lambda g: rec.__setitem__("cot", g.detach().clone()))
         return out
 
-    tof_module.warp_nchw = recording
+    setattr(module, attr, recording)
     try:
         run()
     finally:
-        tof_module.warp_nchw = kernel_fn
+        setattr(module, attr, kernel_fn)
     return calls
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 def phase_timing(calls: dict, profiles: dict, smi: str) -> list:
     """Each kernel on every kind of DCN call the main path made, checked
     against the plain version and timed; per clip, the timed launches times
@@ -681,25 +834,25 @@ def phase_timing(calls: dict, profiles: dict, smi: str) -> list:
     return rows
 
 
-def phase_warp_timing(calls: dict, profiles: dict, smi: str) -> list:
-    """K4 / K5 on every kind of warp call the TOF clip made, checked against
-    the plain version and timed beside it and F.grid_sample; per clip, the
-    timed launches times their count beside the profiler's device time."""
+def phase_recorded_timing(tag: str, calls: dict, profiles: dict, kernels, against) -> list:
+    """The path's forward and backward kernels (`kernels`) on every kind of
+    call a TOF or DUF clip made, checked against the plain version by
+    `against` and timed beside it; per clip, the timed launches times their
+    count beside the profiler's device time."""
     rows = []
+    fwd, _ = kernels
     for dt_name, by_kind in calls.items():
-        per_clip = dict.fromkeys(WARP_KERNELS, 0.0)
+        per_clip = dict.fromkeys(kernels, 0.0)
         for label, rec in sorted(by_kind.items()):
             check(rec["bwd"] == 0 or rec.get("cot") is not None,
                   f"{label}: no gradient recorded")
-            x, flow = rec["args"]
-            for row in warp_against_plain(label, x, flow, rec.get("cot"), need_x=False,
-                                          timed=True):
-                row["per_clip"] = rec["count"] if row["name"] == "warp_fwd" else rec["bwd"]
+            for row in against(label, *rec["args"], rec.get("cot"), need_x=False, timed=True):
+                row["per_clip"] = rec["count"] if row["name"] == fwd else rec["bwd"]
                 row["run"] = dt_name
                 per_clip[row["name"]] += row["ms"] * row["per_clip"]
                 rows.append(row)
         prof = profiles.get(dt_name, {})
-        print(f"[timing] tof-{dt_name}-windows per clip: timed launches x calls "
+        print(f"[timing] {tag}-{dt_name}-windows per clip: timed launches x calls "
               f"{ {k: round(v, 3) for k, v in per_clip.items()} } ms; profiler's kernel "
               f"time {prof.get('kernel_ms', 'not measured')} ms over "
               f"{prof.get('kernel_n', 'not measured')} launches")
@@ -758,13 +911,27 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lq, gt = synthetic_clip(gen)
     edvr_launches, main_results, profiles, calls = phase_main(smi, gen, lq, gt)
-    tof_launches, tof_results, tof_profiles, warp_calls = phase_tof(smi, gen, lq, gt)
+    tof_launches, tof_results, tof_profiles, warp_calls = phase_bn_net(
+        "tof", TOF_G, TOF_FRAMES, WARP_KERNELS, warp_launches_per_clip,
+        (tof_module, "warp_nchw", grid_sample_ref.warp_nchw), smi, gen, lq, gt,
+        padding="reflection", crop=0)
+    with torch.no_grad():  # DUF's blur-matched LR of the same HR clip
+        duf_lq = duf_downsample(torch.as_tensor(gt, device="cuda"), SCALE).cpu().numpy()
+    check(duf_lq.shape == lq.shape, f"duf_downsample gave {duf_lq.shape}, not {lq.shape}")
+    duf_launches, duf_results, duf_profiles, duf_calls = phase_bn_net(
+        "duf", DUF_G, DUF_FRAMES, DUF_KERNELS, duf_launches_per_clip,
+        (duf_module, "dynamic_upsampling_filter", dynamic_upsampling_filter_ref), smi, gen,
+        duf_lq, gt, padding="new_info", crop=DUF_CROP)
     rows = phase_timing(calls, profiles, smi)
-    rows += phase_warp_timing(warp_calls, tof_profiles, smi)
+    rows += phase_recorded_timing("tof", warp_calls, tof_profiles, WARP_KERNELS,
+                                  warp_against_plain)
+    rows += phase_recorded_timing("duf", duf_calls, duf_profiles, DUF_KERNELS,
+                                  duf_against_plain)
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
     launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
-                **{k: tof_launches[k] for k in WARP_KERNELS}}
+                **{k: tof_launches[k] for k in WARP_KERNELS},
+                **{k: duf_launches[k] for k in DUF_KERNELS}}
 
     kernels = []
     for name, (source, label, replaces) in KERNELS.items():
@@ -778,7 +945,8 @@ def main() -> None:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
-                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+                       "duf": duf_results, "seconds": time.perf_counter() - t_start}, f,
+                      indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

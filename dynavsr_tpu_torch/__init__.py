@@ -2,9 +2,9 @@
 
 Mirrors the JAX package's layout (ops/, models/, adapt/, data/, eval/,
 train/, convert/, cli/). Imports torch, never jax: the modules it needs
-from the JAX package are copied, not imported. The deformable conv's
-forward and backward are hand-written CUDA kernels (csrc/); every other
-op is plain PyTorch.
+from the JAX package are copied, not imported. The deformable conv, the
+flow warp and DUF's dynamic upsampling filter, forward and backward, are
+hand-written CUDA kernels (csrc/); every other op is plain PyTorch.
 """
 
 from dynavsr_tpu_torch.device import resolve_device

@@ -11,7 +11,7 @@ BatchNorm running statistics included) and a fresh optimizer: JAX's
 functional update cannot leak one clip's adaptation into the next, and an
 in-place torch loop would unless it copies.
 
-BatchNorm nets (TOF) adapt in `bn_mode` 'train_ema', the reference's
+BatchNorm nets (TOF, DUF) adapt in `bn_mode` 'train_ema', the reference's
 train()-mode semantics: the adaptation forward runs the module in train
 mode (batch statistics; the running statistics move by the module's EMA,
 in place), gradients move the trainable parameters, and inference runs in
@@ -51,7 +51,7 @@ def has_batch_norm(model: nn.Module) -> bool:
 
 
 def resolve_bn_mode(bn_mode: str, model: nn.Module) -> str:
-    """'auto' -> 'train_ema' for nets with BatchNorm (TOF), 'grad_stats'
+    """'auto' -> 'train_ema' for nets with BatchNorm (TOF, DUF), 'grad_stats'
     otherwise (EDVR); an explicit mode is returned as it is."""
     if bn_mode != "auto":
         return bn_mode

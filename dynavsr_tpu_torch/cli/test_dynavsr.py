@@ -1,9 +1,12 @@
 """DynaVSR adaptation eval (port of dynavsr_tpu/cli/test_dynavsr.py).
 
 Per clip: MFDN turns the adaptation windows into SLR windows, the VSR net
-(EDVR or TOF, `network_G.which_model_G`) takes k adaptation steps on (SLR
-window -> LR centre), then slides over the clip (window-batched, or for
-EDVR sequence mode with `adapt.seq: true`), and the frames are scored.
+(EDVR, TOF or DUF_16L/28L/52L, `network_G.which_model_G`) takes k
+adaptation steps on (SLR window -> LR centre), then slides over the clip
+(window-batched, or for EDVR sequence mode with `adapt.seq: true`), and the
+frames are scored. DUF expects blur-matched LR (data/degradations.
+duf_downsample) and 7 frames a window, and its configs score with
+`eval.crop_border: 8`.
 
     python -m dynavsr_tpu_torch.cli.test_dynavsr -opt configs/test/test_DynaVSR_Vid4.yml
 """
@@ -47,7 +50,7 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
     """Adapt `vsr` (a copy of it) to one clip and super-resolve the clip.
 
     lq (T, h, w, 3) / gt (T, H, W, 3) float in [0, 1]. vsr's class names
-    its architecture (`vsr.arch`: EDVR or TOF) and so its input convention
+    its architecture (`vsr.arch`: EDVR, TOF or DUF) and so its input convention
     (models/padding.py). `seq` asks for sequence-mode inference, which only
     EDVR has: another net falls back to the window-batched path with a
     warning, as the JAX CLI does. The work runs on `device` (default: cuda;

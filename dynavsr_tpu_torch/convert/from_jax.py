@@ -6,6 +6,7 @@ mechanical:
 
   flax path                                   torch key
   conv_first/kernel (HWIO)                 -> conv_first.weight (OIHW)
+  dense1_0/conv2/kernel (DHWIO, 3-D conv)  -> dense1_0.conv2.weight (OIDHW)
   pcd_align/L1_dcnpack/weight (HWIO)       -> pcd_align.L1_dcnpack.weight (OIHW)
   feature_extraction/blocks/block/conv1/kernel, stacked on axis 0
                                            -> feature_extraction.{i}.conv1.weight
@@ -39,6 +40,8 @@ def _to_torch(arr: np.ndarray, leaf: str) -> torch.Tensor:
     a = np.asarray(arr)
     if leaf in ("kernel", "weight") and a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    elif leaf in ("kernel", "weight") and a.ndim == 5:
+        a = a.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     return torch.tensor(a, dtype=torch.float32)
 
 

@@ -1,1 +1,2 @@
-"""Host-side data: sliding windows, colour, bicubic resize, frame IO, test datasets."""
+"""Host-side data: sliding windows, colour, bicubic resize, DUF's blur-matched
+downsample, frame IO, test datasets."""

@@ -1,1 +1,1 @@
-"""Models: EDVR, MFDN, shared blocks, mod-padding."""
+"""Models: EDVR, TOFlow, DUF, MFDN, shared blocks, input conventions."""

@@ -1,12 +1,12 @@
-"""Shared building blocks, NCHW (port of dynavsr_tpu/models/arch_util.py).
+"""Shared building blocks, NCHW / NCDHW (port of dynavsr_tpu/models/arch_util.py).
 
-`Conv2d` adds the JAX package's bf16 compute option to torch's conv: with
-`compute_dtype=torch.bfloat16` the parameters stay fp32 and are cast, with
-the input, to bf16 for the conv, whose output stays bf16 (flax
+`Conv2d` and `Conv3d` add the JAX package's bf16 compute option to torch's
+convs: with `compute_dtype=torch.bfloat16` the parameters stay fp32 and are
+cast, with the input, to bf16 for the conv, whose output stays bf16 (flax
 `nn.Conv(dtype=bfloat16)` semantics). Residual trunks are `nn.Sequential`s
 with the reference's `{name}.{i}.conv1.weight` keys; the JAX package stacks
-the same tensors on a leading axis (nn.scan). `BatchNorm2d` is flax's
-BatchNorm under torch's state_dict keys.
+the same tensors on a leading axis (nn.scan). `BatchNorm2d` and
+`BatchNorm3d` are flax's BatchNorm under torch's state_dict keys.
 """
 
 from __future__ import annotations
@@ -17,12 +17,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Conv2d", "conv", "BatchNorm2d", "ResidualBlockNoBN", "ResTrunk", "lrelu",
+__all__ = ["Conv2d", "Conv3d", "conv", "BatchNorm2d", "BatchNorm3d", "ResidualBlockNoBN", "ResTrunk", "lrelu",
            "interpolate_bilinear", "max_pool_3x3_s2", "avg_pool_3x3_s2", "avg_pool2"]
 
 
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d with an optional compute dtype (None: the input's)."""
+class _ComputeDtype:
+    """A torch conv with an optional compute dtype (None: the input's)."""
 
     def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -36,22 +36,33 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    """nn.Conv2d with an optional compute dtype."""
+
+
+class Conv3d(_ComputeDtype, nn.Conv3d):
+    """nn.Conv3d with an optional compute dtype."""
+
+
 def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1,
          dtype: Optional[torch.dtype] = None) -> Conv2d:
     """Conv with torch-style symmetric padding (kernel - 1) // 2."""
     return Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, compute_dtype=dtype)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """Batch normalisation as the JAX package's flax `nn.BatchNorm`
-    (momentum 0.9, eps 1e-5), with `nn.BatchNorm2d`'s parameters, buffers
-    and state_dict keys, so a reference `.pth` loads.
+class _FlaxBatchNorm:
+    """Batch normalisation as the JAX package's flax `nn.BatchNorm` (eps
+    1e-5), with torch's parameters, buffers and state_dict keys, so a
+    reference `.pth` loads.
 
-    Two differences from `nn.BatchNorm2d`: the statistics and the
+    Two differences from torch's BatchNorm: the statistics and the
     normalisation are computed in fp32 whatever the input's dtype, and the
     train-mode update of `running_var` uses the *biased* batch variance
-    (flax: ra_var = 0.9 ra_var + 0.1 var, no Bessel factor; torch would
-    take var * n / (n - 1)). The output has the input's dtype."""
+    (flax: ra_var = m ra_var + (1 - m) var, no Bessel factor; torch would
+    take var * n / (n - 1)). `momentum` is torch's, 1 - flax's: TOF's
+    BatchNorms set flax momentum 0.9 (torch 0.1, the default here), DUF's
+    keep flax's default 0.99 (torch 0.01). The output has the input's
+    dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -63,12 +74,20 @@ class BatchNorm2d(nn.BatchNorm2d):
                              self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
         with torch.no_grad():
-            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x32, dim=(0, *range(2, x.dim())), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(x.dtype)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """Flax's BatchNorm over (B, C, H, W), `nn.BatchNorm2d`'s keys."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """Flax's BatchNorm over (B, C, T, H, W), `nn.BatchNorm3d`'s keys."""
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:

@@ -14,11 +14,13 @@ import torch
 
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.models.downscaler import MFDN
+from dynavsr_tpu_torch.models.duf import DUF
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.models.tof import TOFlow
 
 __all__ = ["define_G"]
 
+_DUF_DENSE1 = {"DUF_16L": 3, "DUF_28L": 9, "DUF_52L": 21}
 _DTYPES = {None: None, "float32": None, "fp32": None,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -39,7 +41,7 @@ def define_G(opt: Mapping[str, Any], device=None) -> torch.nn.Module:
     which = opt_net["which_model_G"]
     scale = opt.get("scale", 4)
     dt = _net_dtype(opt_net)
-    if opt_net.get("s2d_conv") and which in ("EDVR", "TOF"):
+    if opt_net.get("s2d_conv") and which in ("EDVR", "TOF", *_DUF_DENSE1):
         raise NotImplementedError(
             "network_G.s2d_conv is not ported yet (ROADMAP A.7, conv_s2d); the plain "
             "convs the port runs compute the same output")
@@ -58,8 +60,8 @@ def define_G(opt: Mapping[str, Any], device=None) -> torch.nn.Module:
         if dt is not None:
             raise NotImplementedError("a bf16 MFDN is not ported yet")
         net = MFDN(scale=scale, nf=opt_net.get("nf", 64), nframes=opt_net.get("nframes", 5))
-    elif which in ("DUF_16L", "DUF_28L", "DUF_52L"):
-        raise NotImplementedError(f"{which} is not ported yet (ROADMAP A.6, DUF)")
+    elif which in _DUF_DENSE1:
+        net = DUF(scale=scale, dense1_layers=_DUF_DENSE1[which], dtype=dt)
     elif which == "SFDN":
         raise NotImplementedError("SFDN is not ported yet (ROADMAP A.1)")
     else:

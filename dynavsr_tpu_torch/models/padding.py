@@ -2,7 +2,8 @@
 TOF's bicubic pre-upscale (port of dynavsr_tpu/models/padding.py).
 
 EDVR needs H, W % 4 == 0 (three pyramid levels with exact x2 upsampling);
-SpyNet/TOF needs % 8 on its pre-upscaled input. The adaptation
+SpyNet/TOF needs % 8 on its pre-upscaled input; DUF (and any other
+architecture) takes raw LR of any size, unpadded (`arch_mod` 1). The adaptation
 pseudo-task's SLR windows (LR / 4, e.g. 36x44 or 9x11) are generally not
 divisible. `mod_pad_apply` reflection-pads the bottom/right edges, applies,
 and crops the scaled output back.
@@ -89,12 +90,12 @@ def _make_padded_apply(which: Optional[str], scale: int, train: bool) -> Callabl
 def make_model_apply(which: Optional[str], scale: int) -> Callable:
     """(model, raw-LR windows) -> SR with the architecture's input
     convention, the module in eval mode (EDVR: mod-4 padding; TOF: bicubic
-    pre-upscale, then mod-8 padding)."""
+    pre-upscale, then mod-8 padding; DUF: none)."""
     return _make_padded_apply(which, scale, train=False)
 
 
 def make_mutable_model_apply(which: Optional[str], scale: int) -> Callable:
-    """Train-mode variant of make_model_apply for BatchNorm nets (TOF): the
+    """Train-mode variant of make_model_apply for BatchNorm nets (TOF, DUF): the
     module runs in train mode, so BatchNorm normalises with batch
     statistics and EMA-updates its running statistics in place (the JAX
     version returns the updated batch_stats instead). The same input

@@ -1,1 +1,2 @@
-"""Ops: the deformable conv (CUDA kernels + plain version) and pixel shuffle."""
+"""Ops: the deformable conv, the flow warp and DUF's dynamic upsampling
+filter (CUDA kernels + plain versions), and pixel shuffle."""

@@ -23,9 +23,10 @@ __all__ = ["SOURCES", "build", "load", "stream", "raise_if"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("dcn_fwd", "dcn_bwd", "warp_fwd", "warp_bwd")
+SOURCES = ("dcn_fwd", "dcn_bwd", "warp_fwd", "warp_bwd", "duf_fwd", "duf_bwd")
 _HEADERS = {"dcn_fwd": ("dcn_common.cuh",), "dcn_bwd": ("dcn_common.cuh",),
-            "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",)}
+            "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",),
+            "duf_fwd": ("duf_common.cuh",), "duf_bwd": ("duf_common.cuh",)}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "dcn_bwd_weight": [_VP] * 5 + [_I] * 7 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
+    "duf_fwd": [_VP] * 3 + [_I] * 6 + [_VP],
+    "duf_bwd": [_VP] * 5 + [_I] * 6 + [_VP],
 }
 
 

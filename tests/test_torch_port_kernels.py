@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 DCN's K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight (ops/dcn_ref.py),
-and the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py).
+the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py),
+and DUF's dynamic upsampling filter K6 duf_fwd and K7 duf_bwd
+(ops/duf_filter_ref.py).
 
 Every test here is gpu-marked and skips without a card. This file imports no JAX, so on
 the card it runs without the repository's conftest:
@@ -14,15 +16,20 @@ inputs; the reference runs in fp32 on them and the kernels round their
 fp32 results to bf16 once, so 2^-7 of the largest reference value. Warp
 (fp32 only): forward 1e-5 of the largest reference value (the same four
 products, maybe fused into FMAs); grad flow and grad x 1e-4 (grad x lands
-with atomics, in another order).
+with atomics, in another order). DUF filter: 1e-5 of the largest
+reference value (fp32 sums of 25 or 25 R products in another order); bf16
+filters get their gradient rounded to bf16 on both sides, where the same
+sum may land one bf16 step apart, so grad filters there 2^-7 of the value
+(one step) plus 1e-5 of the largest.
 """
 
 import pytest
 import torch
 
-from dynavsr_tpu_torch.ops import dcn, grid_sample_ref
+from dynavsr_tpu_torch.ops import dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
+from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
 
 
 @pytest.fixture
@@ -196,3 +203,88 @@ def test_warp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         warp.warp_fwd(x, flow.cpu())
     with pytest.raises(ValueError, match="grad_out"):
         warp.warp_bwd(x, flow, cot[:, :2], need_x=True)
+
+
+def _duf_inputs(b, c, r, h, w, fdtype, device, seed):
+    """Centre frame U(0, 1), raw N(0, 1) filters (unnormalised: their sums
+    cancel, so an error shows), an N(0, 1) output gradient."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.rand(b, c, h, w, generator=g)
+    f = torch.randn(b, 25, r, h, w, generator=g).to(fdtype)
+    cot = torch.randn(b, c * r, h, w, generator=g)
+    return [t.to(device) for t in (x, f, cot)]
+
+
+def _plain_duf_grads(x, f, cot):
+    xr, fr = (t.detach().clone().requires_grad_() for t in (x, f))
+    out = dynamic_upsampling_filter_ref(xr, fr)
+    out.backward(cot)
+    return out.detach(), xr.grad, fr.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 3, 1, 64), (3, 3, 7, 9), (8, 3, 36, 44), (2, 5, 13, 40)],
+                         ids=["one_row", "3x7x9", "adapt36x44", "c5"])
+@pytest.mark.parametrize("r", [4, 16])
+@pytest.mark.parametrize("fdtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_duf_kernels_match_plain(cuda, shape, r, fdtype):
+    b, c, h, w = shape
+    x, f, cot = _duf_inputs(b, c, r, h, w, fdtype, cuda, seed=sum(shape) + r)
+    ref, ref_gx, ref_gf = _plain_duf_grads(x, f, cot)
+    out = duf_filter.duf_fwd(x, f)
+    gx, gf = duf_filter.duf_bwd(x, f, cot, need_x=True)
+    none, gf_only = duf_filter.duf_bwd(x, f, cot, need_x=False)
+    torch.cuda.synchronize()
+    assert none is None and out.dtype == gx.dtype == torch.float32 and gf.dtype == fdtype
+    _close(out, ref, 1e-5)
+    _close(gx, ref_gx, 1e-5)
+    if fdtype == torch.float32:
+        _close(gf, ref_gf, 1e-5)
+    else:
+        torch.testing.assert_close(gf.float(), ref_gf.float(), rtol=2 ** -7,
+                                   atol=1e-5 * float(ref_gf.float().abs().max()))
+    assert torch.equal(gf_only, gf)  # a gather: no atomics, the same order
+
+
+@pytest.mark.gpu
+def test_duf_autograd_goes_through_the_kernels(cuda):
+    """Filters need a gradient, x does not (DUF's adaptation): one K6, one
+    K7, no grad x; then both; no launches under no_grad but K6."""
+    x, f, cot = _duf_inputs(2, 3, 16, 8, 12, torch.float32, cuda, seed=4)
+    fr = f.clone().requires_grad_()
+    duf_filter.reset_launch_counts()
+    duf_filter.dynamic_upsampling_filter(x, fr).backward(cot)
+    assert duf_filter.launch_counts() == {"duf_fwd": 1, "duf_bwd": 1}
+    _, ref_gx, ref_gf = _plain_duf_grads(x, f, cot)
+    _close(fr.grad, ref_gf, 1e-5)
+    xs, fs = (t.clone().requires_grad_() for t in (x, f))
+    duf_filter.dynamic_upsampling_filter(xs, fs).backward(cot)
+    assert duf_filter.launch_counts() == {"duf_fwd": 2, "duf_bwd": 2}
+    _close(xs.grad, ref_gx, 1e-5)
+    _close(fs.grad, ref_gf, 1e-5)
+    with torch.no_grad():
+        duf_filter.dynamic_upsampling_filter(x, f)
+    assert duf_filter.launch_counts() == {"duf_fwd": 3, "duf_bwd": 2}
+
+
+@pytest.mark.gpu
+def test_duf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, f, cot = _duf_inputs(1, 3, 4, 8, 8, torch.float32, cuda, seed=5)
+    with pytest.raises(ValueError, match="CUDA"):
+        duf_filter.duf_fwd(x.cpu(), f.cpu())
+    with pytest.raises(ValueError, match="float32 x"):
+        duf_filter.duf_fwd(x.bfloat16(), f)
+    with pytest.raises(ValueError, match="filters dtype"):
+        duf_filter.duf_fwd(x, f.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        duf_filter.duf_fwd(x.transpose(2, 3), f)
+    with pytest.raises(ValueError, match="do not fit"):
+        duf_filter.duf_fwd(x, f[:, :, :, :4])
+    with pytest.raises(ValueError, match=r"\(B, 25, R, H, W\)"):
+        duf_filter.duf_fwd(x, f[:, :9])
+    with pytest.raises(ValueError, match="must be on"):
+        duf_filter.duf_fwd(x, f.cpu())
+    with pytest.raises(ValueError, match="channels"):
+        duf_filter.duf_fwd(torch.zeros(1, 17, 8, 8, device=cuda), f)
+    with pytest.raises(ValueError, match="grad_out"):
+        duf_filter.duf_bwd(x, f, cot[:, :5], need_x=True)

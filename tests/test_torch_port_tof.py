@@ -288,11 +288,14 @@ def test_define_g_builds_tof_and_refuses_what_is_not_ported():
     assert net16.pre_upscale and net16.conv_64_64_9x9.compute_dtype == torch.bfloat16
     assert isinstance(define_G({"network_G": {"which_model_G": "MFDN", "nf": 8, "nframes": 3}},
                                device="cpu"), MFDN)
-    for which, item in (("DUF_16L", "A.6"), ("SFDN", "A.1")):
-        with pytest.raises(NotImplementedError, match=item):
-            define_G({"network_G": {"which_model_G": which}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        define_G({"network_G": {"which_model_G": "TOF", "s2d_conv": True}}, device="cpu")
+    for which, layers in (("DUF_16L", 3), ("DUF_28L", 9), ("DUF_52L", 21)):
+        assert define_G({"network_G": {"which_model_G": which}},
+                        device="cpu").dense1_layers == layers
+    with pytest.raises(NotImplementedError, match="A.1"):
+        define_G({"network_G": {"which_model_G": "SFDN"}}, device="cpu")
+    for which in ("TOF", "DUF_16L"):
+        with pytest.raises(NotImplementedError, match="A.7"):
+            define_G({"network_G": {"which_model_G": which, "s2d_conv": True}}, device="cpu")
 
 
 def test_reference_pth_loads_strictly_and_matches_the_torch_replica(tmp_path):
