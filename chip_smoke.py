@@ -8,12 +8,16 @@ Phases; any failure raises and exits non-zero:
               (no card: exit 2, no result printed);
   2. build    nvcc builds the kernels K1-K7 from csrc/ (one process per
               source, in parallel) and prints ptxas' register/smem lines;
+              checks with cuobjdump that K1's code holds tensor-core
+              (HMMA) instructions: its bf16 product runs on mma.sync;
   3. kernels  K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight against the
               plain PyTorch version (ops/dcn_ref.py and its autograd) at
               Gd 8, 2, 1 in fp32 and bf16, at the main path's two L1 DCN
               shapes (inference: 40 frames of 144x176; adaptation: 40 SLR
               frames of 36x44; C = Cout = 64), on white-noise offsets that
-              reach outside the image; K4 warp_fwd and K5 warp_bwd (grad
+              reach outside the image; K1 in bf16 also against the plain
+              version with bf16 columns and weights (its own function);
+              K4 warp_fwd and K5 warp_bwd (grad
               flow and grad x) against ops/grid_sample_ref.py at one
               adaptation shape (8 frames of 144x176) and one inference
               shape (8 of 576x704), on white-noise flows N(0, 4^2) px;
@@ -71,6 +75,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -159,6 +164,9 @@ KERNELS = {
                 "dynavsr_tpu/models/duf.py:47"),
 }
 DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
+# Device kernels a wrapper launches besides `<name>_kernel`, counted in its
+# profiled time (not in its launches): K1's channels-last copy of x.
+PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",)}
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
 DUF_KERNELS = ("duf_fwd", "duf_bwd")
 
@@ -217,6 +225,13 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path("dcn_fwd"))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    hmma = [ln.split() for ln in sass.splitlines() if "HMMA" in ln]
+    kinds = sorted({w for words in hmma for w in words if w.startswith("HMMA")})
+    print(f"[build] dcn_fwd: {len(hmma)} tensor-core instructions in its SASS {kinds}")
+    check(len(hmma) > 0, "K1's bf16 product does not run on the tensor cores (no HMMA in SASS)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -259,8 +274,11 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
     the plain version in fp32 on the same input values, raise if one
     disagrees, and with `timed` time both with CUDA events. Tolerance
     relative to the plain result's largest value: fp32 1e-4 (same
-    arithmetic, another order; K2/K3 atomics), bf16 2^-7 (one rounding of
-    the kernels' fp32 result to bf16, with margin)."""
+    arithmetic, another order; K2/K3 atomics), bf16 2^-7 (K1's bf16 columns
+    and one rounding of the kernels' fp32 result to bf16, with margin). K1
+    in bf16 is also held against the plain version with bf16 columns and
+    weights, its own function: 2^-8 (summation order and the final
+    rounding)."""
     names = list(DCN_KERNELS) if cot is not None else ["dcn_fwd"]
     dtype, shape = x.dtype, tuple(x.shape)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
@@ -296,6 +314,16 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol * scale)
         line = (f"{name:14s} {label} {shape} Gd={gd} {row['dtype']:8s} "
                 f"max|err| {err:.3e} (tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if name == "dcn_fwd" and dtype == torch.bfloat16:
+            with torch.no_grad():
+                ref16 = deform_conv2d_ref(*ref_in, deformable_groups=gd,
+                                          compute_dtype=torch.bfloat16)
+            err16 = float((got[name][0].float() - ref16).abs().max())
+            tol16 = 2.0 ** -8 * float(ref16.abs().max())
+            ok = ok and err16 <= tol16
+            row.update(max_abs_err_plain_bf16=err16, tol_plain_bf16=tol16)
+            line += (f"; vs plain bf16 columns {err16:.3e} (tol {tol16:.3e}) "
+                     f"{'ok' if err16 <= tol16 else 'FAIL'}")
         if timed:
             ms = cuda_ms(launch[name], reps=10)
             plain_ms = cuda_ms(plain[name], reps=3, warmup=1)
@@ -861,9 +889,9 @@ def phase_recorded_timing(tag: str, calls: dict, profiles: dict, kernels, agains
 
 def profile_clip(run, mode: str, smi: str, names) -> dict:
     """One clip under torch.profiler: device time by kernel, the share of
-    the port's kernels `names`, and the device's idle share of the
-    profiled wall time (1 - union of kernel intervals / wall; the
-    profiler's own overhead lengthens the wall time)."""
+    the port's kernels `names` (with their PROLOGUES), and the device's
+    idle share of the profiled wall time (1 - union of kernel intervals /
+    wall; the profiler's own overhead lengthens the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -885,7 +913,9 @@ def profile_clip(run, mode: str, smi: str, names) -> dict:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     total = sum(by_name.values())
-    k_us = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) for k in names}
+    k_us = {k: sum(v for n, v in by_name.items()
+                   if any(p in n for p in (f"{k}_kernel", *PROLOGUES.get(k, ()))))
+            for k in names}
     k_n = {k: sum(v for n, v in n_by_name.items() if f"{k}_kernel" in n) for k in names}
     print(f"[profile] {mode}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, "
           f"idle share {1 - busy / wall_us:.1%}; the port's kernels "
@@ -942,6 +972,11 @@ def main() -> None:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
+        if name == "dcn_fwd":  # the bf16 call of the same kind: the tensor-core path
+            r16 = next(r for r in rows if r["name"] == name and r["label"] == label
+                       and r["dtype"] == "bfloat16")
+            kernels[-1].update(ms_bf16=r16["ms"], bound_ms_bf16=r16["bound_ms"],
+                               max_abs_err_bf16=r16["max_abs_err"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,

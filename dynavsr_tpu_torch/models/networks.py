@@ -4,6 +4,13 @@ String dispatch on `network_G.which_model_G`, so the reference YAML
 configs drive the port as they drive the JAX package. The module comes
 back on `resolve_device(device)`: the card unless the caller asks for the
 CPU.
+
+`network_G.s2d_conv` is accepted and has no effect. In the JAX package it
+picks a space-to-depth schedule for TOF's and DUF's stride-1 convs
+(dynavsr_tpu/ops/conv_s2d.py: weights repacked so the TPU's matrix unit
+gets more output lanes, the conv itself XLA's) whose output equals the
+plain conv's; EDVR ignores it there too. On the card the port runs the
+library convolution for every conv, so both settings build one network.
 """
 
 from __future__ import annotations
@@ -41,10 +48,6 @@ def define_G(opt: Mapping[str, Any], device=None) -> torch.nn.Module:
     which = opt_net["which_model_G"]
     scale = opt.get("scale", 4)
     dt = _net_dtype(opt_net)
-    if opt_net.get("s2d_conv") and which in ("EDVR", "TOF", *_DUF_DENSE1):
-        raise NotImplementedError(
-            "network_G.s2d_conv is not ported yet (ROADMAP A.7, conv_s2d); the plain "
-            "convs the port runs compute the same output")
     if which == "EDVR":
         net = EDVR(
             nf=opt_net.get("nf", 64), nframes=opt_net.get("nframes", 5),

@@ -19,7 +19,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "build", "load", "stream", "raise_if"]
+__all__ = ["SOURCES", "build", "load", "lib_path", "stream", "raise_if"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -35,7 +35,7 @@ _LOG: Dict[str, str] = {}
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "dcn_fwd": [_VP] * 6 + [_I] * 7 + [_VP],
+    "dcn_fwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "dcn_bwd_data": [_VP] * 8 + [_I] * 7 + [_VP],
     "dcn_bwd_weight": [_VP] * 5 + [_I] * 7 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
@@ -52,7 +52,8 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of csrc/<name>.cu is built (hash of its sources)."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for f in (f"{name}.cu",) + _HEADERS[name]:
         h.update((_CSRC / f).read_bytes())
@@ -62,13 +63,13 @@ def _lib_path(name: str) -> Path:
 def build(names=SOURCES) -> Dict[str, str]:
     """Compile every source whose library is missing, in parallel; return
     {name: nvcc output} (the -Xptxas -v register/shared-memory lines)."""
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not lib_path(n).exists()]
     if todo:
         nvcc = _nvcc()
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for n in todo:
-            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True), tmp)
@@ -79,7 +80,7 @@ def build(names=SOURCES) -> Dict[str, str]:
             if p.returncode != 0:
                 failed.append(f"{n}.cu (rc {p.returncode}):\n{out}")
             else:
-                os.replace(tmp, _lib_path(n))
+                os.replace(tmp, lib_path(n))
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return {n: _LOG.get(n, "(cached)") for n in names}
@@ -90,7 +91,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         for fn, argtypes in _SIGNATURES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes

@@ -73,15 +73,22 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tensor:
-    """K1: the forward on CUDA tensors (3x3, stride 1, padding 1)."""
+    """K1: the forward on CUDA tensors (3x3, stride 1, padding 1). The
+    kernel samples a channels-last copy of x (its launcher writes it into
+    `x_cl` first), and takes the weight as (9, Cout, C) in bf16 (the
+    tensor-core B operand) or (9, C, Cout) in fp32."""
     global fwd_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
     _check(x, offset, mask, deformable_groups, cout, weight=weight, bias=bias)
-    wt = weight.permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    x_cl = torch.empty_like(x)
+    if x.dtype == torch.bfloat16:
+        wt = weight.permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
+    else:
+        wt = weight.permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     lib = _build.load("dcn_fwd")
-    rc = lib.dcn_fwd(x.data_ptr(), offset.data_ptr(), _ptr(mask), wt.data_ptr(),
+    rc = lib.dcn_fwd(x.data_ptr(), x_cl.data_ptr(), offset.data_ptr(), _ptr(mask), wt.data_ptr(),
                      _ptr(bias), out.data_ptr(), b, c, h, w, cout, deformable_groups,
                      _DTYPES[x.dtype], _build.stream(x))
     _build.raise_if(rc, "dcn_fwd")
@@ -166,8 +173,10 @@ def deform_conv2d(
     """Modulated (mask given) or plain deformable conv, 3x3, stride 1,
     padding 1. x (B, C, H, W); offset (B, 2*Gd*9, H, W) interleaved
     (dy, dx) per (group, tap); mask (B, Gd*9, H, W) post-sigmoid; weight
-    OIHW. CUDA tensors run the kernels, CPU tensors the plain version."""
+    OIHW. CUDA tensors run the kernels, CPU tensors the plain version, which
+    contracts in x's dtype as K1 does (bf16 columns and weights, fp32
+    accumulation)."""
     if x.is_cuda:
         return DeformConv2dFunction.apply(x, offset, mask, weight, bias, deformable_groups)
     return deform_conv2d_ref(x, offset, mask, weight, bias,
-                             deformable_groups=deformable_groups)
+                             deformable_groups=deformable_groups, compute_dtype=x.dtype)

@@ -7,9 +7,15 @@ Bilinear sampling where each corner outside the image contributes zero
 (the CUDA reference's dmcn_im2col_bilinear rule), offsets interleaved
 (dy, dx) per (deformable group, tap): channel 2*(g*K + k) is dy and
 2*(g*K + k) + 1 is dx. Sampling positions are fp32 for every input dtype;
-the columns and the contraction accumulate in fp32 and the result is
-returned in x's dtype. Its autograd is the CPU backward and the oracle the
-CUDA kernels (ops/dcn.py) are held against.
+the columns (mask x bilinear sample) are formed in fp32, and the
+contraction accumulates in fp32; the result is returned in x's dtype.
+With `compute_dtype=torch.bfloat16` the columns and the weights are rounded
+to bf16 before the contraction: K1's function in bf16 (its tensor-core
+product takes bf16 operands), and the rounding point of JAX's
+deform_conv2d_fused, which casts its columns to the compute dtype. The
+rounding is straight-through: the gradient is that of the fp32 columns, as
+K2/K3 compute it. Its autograd is the CPU backward and the oracle the CUDA
+kernels (ops/dcn.py) are held against.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
     return (size + 2 * pad - dil * (k - 1) - 1) // stride + 1
 
 
+def _round_through(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t rounded to `dtype` (values in fp32), with t's own gradient."""
+    return t + (t.to(dtype).to(t.dtype) - t).detach()
+
+
 def deform_conv2d_ref(
     x: torch.Tensor,
     offset: torch.Tensor,
@@ -35,9 +46,11 @@ def deform_conv2d_ref(
     padding: int = 1,
     dilation: int = 1,
     deformable_groups: int = 1,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """x (B, Cin, H, W); offset (B, 2*Gd*K, Ho, Wo); mask (B, Gd*K, Ho, Wo)
-    post-sigmoid or None; weight OIHW (Cout, Cin, kh, kw); conv groups 1."""
+    post-sigmoid or None; weight OIHW (Cout, Cin, kh, kw); conv groups 1.
+    compute_dtype: the operand dtype of the contraction (None: fp32)."""
     b, cin, h, w = x.shape
     cout, cin_w, kh, kw = weight.shape
     if cin_w != cin:
@@ -82,7 +95,10 @@ def deform_conv2d_ref(
     if mask is not None:
         cols = cols * mask.to(f32).view(b, gd, 1, k, ho, wo)
     cols = cols.reshape(b, cin, k, ho * wo)
-    out = torch.einsum("bckp,ock->bop", cols, weight.to(f32).reshape(cout, cin, k))
+    wmat = weight.to(f32).reshape(cout, cin, k)
+    if compute_dtype is not None and compute_dtype != f32:
+        cols, wmat = _round_through(cols, compute_dtype), _round_through(wmat, compute_dtype)
+    out = torch.einsum("bckp,ock->bop", cols, wmat)
     if bias is not None:
         out = out + bias.to(f32).view(1, -1, 1)
     return out.view(b, cout, ho, wo).to(x.dtype)

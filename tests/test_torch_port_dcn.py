@@ -5,7 +5,8 @@ runs dcn_ref on CPU tensors) and through JAX's deform_conv2d_ref and
 deform_conv2d_fused (NHWC): forward, and the VJP for x, offset, mask,
 weight and bias. Offsets are non-integer and push some samples outside
 the image. Tolerance: fp32 throughout, sums over C*K = 72 terms in a
-different order, so 1e-4 absolute on O(1) values.
+different order, so 1e-4 absolute on O(1) values; the bf16 cases state
+theirs.
 """
 
 import jax
@@ -17,6 +18,7 @@ import torch
 from dynavsr_tpu.ops.dcn_fused import deform_conv2d_fused
 from dynavsr_tpu.ops.dcn_ref import deform_conv2d_ref
 from dynavsr_tpu_torch.ops.dcn import deform_conv2d
+from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref as torch_dcn_ref
 
 B, C, COUT, H, W = 2, 8, 6, 7, 9
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -104,3 +106,33 @@ def test_dcn_bf16_positions_are_fp32():
     assert out.dtype == torch.bfloat16
     scale = float(ref.abs().max())
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=scale * 2 ** -7)
+
+
+@pytest.mark.parametrize("gd", [1, 2, 8])
+def test_dcn_plain_bf16_matches_jax_fused_bf16(gd):
+    """The plain version with bf16 columns and weights (K1's function in
+    bf16: `compute_dtype=torch.bfloat16`, which the CPU branch uses for bf16
+    inputs) against JAX's deform_conv2d_fused on the same bf16 inputs. Each
+    framework rounds at its own points (JAX also rounds the corner weights,
+    the per-corner products and the output before adding the bias in bf16),
+    and each stays within 2^-7 of the largest fp32 value of the fp32 result
+    on the same bf16-valued inputs, so the two agree within 2^-6 of it."""
+    x, offset, mask, weight, bias, _ = _inputs(gd, seed=gd)
+    bf = [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (x, offset, mask, weight, bias)]
+    want = np.asarray(deform_conv2d_fused(*[jnp.asarray(a) for a in bf],
+                                          deformable_groups=gd)).astype(np.float32)
+    want32 = np.asarray(deform_conv2d_fused(*[jnp.asarray(a.astype(np.float32)) for a in bf],
+                                            deformable_groups=gd))
+    args = [_nchw(a.astype(np.float32)) for a in bf[:3]]
+    args += [torch.from_numpy(bf[3].astype(np.float32).transpose(3, 2, 0, 1).copy()),
+             torch.from_numpy(bf[4].astype(np.float32))]
+    out = deform_conv2d(*[a.to(torch.bfloat16) for a in args], deformable_groups=gd)
+    plain = torch_dcn_ref(*args, deformable_groups=gd, compute_dtype=torch.bfloat16)
+    out32 = deform_conv2d(*args, deformable_groups=gd)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(), plain.to(torch.bfloat16).float().numpy())
+    got = out.float().numpy().transpose(0, 2, 3, 1)
+    scale = float(np.abs(want32).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 ** -6 * scale)
+    np.testing.assert_allclose(got, want32, rtol=0, atol=2 ** -7 * scale)
+    assert not np.array_equal(plain.numpy(), out32.numpy())  # the columns were rounded

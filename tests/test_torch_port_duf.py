@@ -158,6 +158,21 @@ def test_duf_eval_forward_matches_jax(variables):
     assert np.abs(want).max() > 0.1
 
 
+def test_duf_s2d_eval_forward_matches_jax(variables):
+    """JAX's DUF with s2d=True (`network_G.s2d_conv`: the dense trunk in the
+    spatially packed channel-major domain, taken since 8x10 is even) against
+    the port's DUF, which runs plain convs for that key: the same weights,
+    eval mode; 1e-4 absolute on outputs of O(1), as the plain schedule."""
+    x = _frames((2, T, H, W, 3), 8)
+    want = np.asarray(jax.jit(JaxDUF(dense1_layers=LAYERS, s2d=True).apply)(
+        variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = _torch_duf(variables)(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 4 * H, 4 * W, 3)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert np.abs(want).max() > 0.1
+
+
 def test_duf_train_forward_and_batch_stats_match_jax(variables):
     """Train mode: batch statistics in the forward and one EMA step of
     every BatchNorm with flax's default momentum 0.99. Output and running

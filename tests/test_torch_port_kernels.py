@@ -12,8 +12,12 @@ the card it runs without the repository's conftest:
 Tolerances: fp32 — the kernels and dcn_ref do the same fp32 arithmetic in
 another order (atomics in K2/K3 change it from run to run), so 1e-4 of the
 largest reference value (TF32 off). bf16 — both sides read the same bf16
-inputs; the reference runs in fp32 on them and the kernels round their
-fp32 results to bf16 once, so 2^-7 of the largest reference value. Warp
+inputs; the reference runs in fp32 on them, K1 rounds its columns to bf16
+for the tensor cores and its fp32 sum to bf16 once, and K2/K3 round their
+fp32 results once, so 2^-7 of the largest reference value. K1 in bf16 is
+also held against the plain version with bf16 columns and weights
+(`compute_dtype=torch.bfloat16`, its own function): there only the
+summation order and the final rounding differ, so 2^-8. Warp
 (fp32 only): forward 1e-5 of the largest reference value (the same four
 products, maybe fused into FMAs); grad flow and grad x 1e-4 (grad x lands
 with atomics, in another order). DUF filter: 1e-5 of the largest
@@ -60,8 +64,9 @@ def _close(got, ref, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 64, 64, 13, 21), (3, 8, 6, 9, 7), (1, 128, 64, 11, 70)],
-                         ids=["c64", "c8", "c128"])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 13, 21), (3, 8, 6, 9, 7), (1, 128, 64, 11, 70),
+                                   (3, 64, 64, 92, 132)],
+                         ids=["c64", "c8", "c128", "c64_walk"])
 @pytest.mark.parametrize("gd", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
@@ -85,6 +90,13 @@ def test_kernels_match_plain(cuda, shape, gd, dtype, with_mask):
     torch.cuda.synchronize()
     assert out.dtype == gx.dtype == goff.dtype == gw.dtype == dtype
     _close(out, ref, tol)
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            ref16 = deform_conv2d_ref(x.float(), offset.float(),
+                                      None if m is None else m.float(), weight.float(),
+                                      bias.float(), deformable_groups=gd,
+                                      compute_dtype=torch.bfloat16)
+        _close(out, ref16, 2 ** -8)
     _close(gx, ref_in[0].grad, tol)
     _close(goff, ref_in[1].grad, tol)
     if with_mask:
@@ -140,8 +152,9 @@ def _plain_warp_grads(x, flow, cot):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 3, 13, 21), (8, 3, 36, 44), (3, 5, 7, 9), (1, 3, 1, 64)],
-                         ids=["c3", "adapt36x44", "c5", "one_row"])
+@pytest.mark.parametrize("shape", [(2, 3, 13, 21), (8, 3, 36, 44), (3, 5, 7, 9), (1, 3, 1, 64),
+                                   (2, 3, 24, 704)],
+                         ids=["c3", "adapt36x44", "c5", "one_row", "w704"])
 def test_warp_kernels_match_plain(cuda, shape):
     x, flow, cot = _warp_inputs(*shape, cuda, seed=sum(shape))
     ref, ref_gx, ref_gf = _plain_warp_grads(x, flow, cot)

@@ -293,9 +293,20 @@ def test_define_g_builds_tof_and_refuses_what_is_not_ported():
                         device="cpu").dense1_layers == layers
     with pytest.raises(NotImplementedError, match="A.1"):
         define_G({"network_G": {"which_model_G": "SFDN"}}, device="cpu")
-    for which in ("TOF", "DUF_16L"):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            define_G({"network_G": {"which_model_G": which, "s2d_conv": True}}, device="cpu")
+    # network_G.s2d_conv (JAX's space-to-depth conv schedule, same output as
+    # the plain convs) builds the same network in the port: exactly the same
+    # CPU output on the same weights.
+    edvr = {"nf": 8, "nframes": 3, "groups": 2, "front_RBs": 1, "back_RBs": 1}
+    for which, extra, shape in (("TOF", {"nframes": T}, (1, T, H, W, 3)),
+                                ("DUF_16L", {"nframes": 7}, (1, 7, 8, 10, 3)),
+                                ("EDVR", edvr, (1, 3, H, W, 3))):
+        base = {"which_model_G": which, **extra}
+        plain = define_G({"scale": 4, "network_G": base}, device="cpu").eval()
+        s2d = define_G({"scale": 4, "network_G": {**base, "s2d_conv": True}}, device="cpu")
+        s2d.load_state_dict(plain.state_dict(), strict=True)
+        x = torch.from_numpy(_frames(shape, 9))
+        with torch.no_grad():
+            torch.testing.assert_close(s2d.eval()(x), plain(x), rtol=0, atol=0)
 
 
 def test_reference_pth_loads_strictly_and_matches_the_torch_replica(tmp_path):
