@@ -8,15 +8,17 @@ Phases; any failure raises and exits non-zero:
               (no card: exit 2, no result printed);
   2. build    nvcc builds the kernels K1-K7 from csrc/ (one process per
               source, in parallel) and prints ptxas' register/smem lines;
-              checks with cuobjdump that K1's code holds tensor-core
-              (HMMA) instructions: its bf16 product runs on mma.sync;
+              checks with cuobjdump that the code of K1 and of K2/K3 holds
+              tensor-core (HMMA) instructions: their bf16 products run on
+              mma.sync;
   3. kernels  K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight against the
               plain PyTorch version (ops/dcn_ref.py and its autograd) at
               Gd 8, 2, 1 in fp32 and bf16, at the main path's two L1 DCN
               shapes (inference: 40 frames of 144x176; adaptation: 40 SLR
               frames of 36x44; C = Cout = 64), on white-noise offsets that
-              reach outside the image; K1 in bf16 also against the plain
-              version with bf16 columns and weights (its own function);
+              reach outside the image; K1-K3 in bf16 also against the
+              plain version with bf16 columns and weights (their own
+              function);
               K4 warp_fwd and K5 warp_bwd (grad
               flow and grad x) against ops/grid_sample_ref.py at one
               adaptation shape (8 frames of 144x176) and one inference
@@ -165,8 +167,12 @@ KERNELS = {
 }
 DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
 # Device kernels a wrapper launches besides `<name>_kernel`, counted in its
-# profiled time (not in its launches): K1's channels-last copy of x.
-PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",)}
+# profiled time (not in its launches): K1's channels-last copy of x; K2's
+# zero-fill of its grad x scratch and the transpose to NCHW; K3's zero-fill
+# of its scratch and the write-out as OIHW.
+PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",),
+             "dcn_bwd_data": ("bwd::gx_zero", "bwd::gx_to_nchw"),
+             "dcn_bwd_weight": ("bwd::gw_zero", "bwd::gw_to_oihw")}
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
 DUF_KERNELS = ("duf_fwd", "duf_bwd")
 
@@ -226,12 +232,14 @@ def phase_build() -> None:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path("dcn_fwd"))], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    hmma = [ln.split() for ln in sass.splitlines() if "HMMA" in ln]
-    kinds = sorted({w for words in hmma for w in words if w.startswith("HMMA")})
-    print(f"[build] dcn_fwd: {len(hmma)} tensor-core instructions in its SASS {kinds}")
-    check(len(hmma) > 0, "K1's bf16 product does not run on the tensor cores (no HMMA in SASS)")
+    for name in ("dcn_fwd", "dcn_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        hmma = [ln.split() for ln in sass.splitlines() if "HMMA" in ln]
+        kinds = sorted({w for words in hmma for w in words if w.startswith("HMMA")})
+        print(f"[build] {name}: {len(hmma)} tensor-core instructions in its SASS {kinds}")
+        check(len(hmma) > 0,
+              f"{name}'s bf16 products do not run on the tensor cores (no HMMA in SASS)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -274,23 +282,34 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
     the plain version in fp32 on the same input values, raise if one
     disagrees, and with `timed` time both with CUDA events. Tolerance
     relative to the plain result's largest value: fp32 1e-4 (same
-    arithmetic, another order; K2/K3 atomics), bf16 2^-7 (K1's bf16 columns
-    and one rounding of the kernels' fp32 result to bf16, with margin). K1
-    in bf16 is also held against the plain version with bf16 columns and
-    weights, its own function: 2^-8 (summation order and the final
-    rounding)."""
+    arithmetic, another order; K2/K3 atomics), bf16 2^-7 (K1's and K3's
+    bf16 columns and one rounding of the kernels' fp32 result to bf16, with
+    margin). In bf16 each is also held against the plain version with bf16
+    columns and weights, its own function: K1 2^-8 (summation order and the
+    final rounding), K2 and K3 2^-8 + 1e-4 (the final rounding, and the
+    fp32 tolerance for the order in which their atomics sum). K2 and K3
+    read x channels-last, as the autograd hands them K1's copy."""
     names = list(DCN_KERNELS) if cot is not None else ["dcn_fwd"]
     dtype, shape = x.dtype, tuple(x.shape)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     ref_in = [t.detach().float().requires_grad_() for t in (x, offset, mask, weight, bias)]
     ref = deform_conv2d_ref(*ref_in, deformable_groups=gd)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
     got = {"dcn_fwd": [dcn.dcn_fwd(x, offset, mask, weight, bias, gd)]}
     want = {"dcn_fwd": [ref]}
+    want16 = {}
+    if dtype == torch.bfloat16:
+        in16 = [t.detach().float().requires_grad_() for t in (x, offset, mask, weight, bias)]
+        ref16 = deform_conv2d_ref(*in16, deformable_groups=gd, compute_dtype=torch.bfloat16)
+        want16["dcn_fwd"] = [ref16.detach()]
     if cot is not None:
         ref_grads = torch.autograd.grad(ref, ref_in[:4], cot.float(), retain_graph=True)
-        got["dcn_bwd_data"] = list(dcn.dcn_bwd_data(x, offset, mask, weight, cot, gd))
-        got["dcn_bwd_weight"] = [dcn.dcn_bwd_weight(x, offset, mask, cot, gd)]
+        got["dcn_bwd_data"] = list(dcn.dcn_bwd_data(x_cl, offset, mask, weight, cot, gd))
+        got["dcn_bwd_weight"] = [dcn.dcn_bwd_weight(x_cl, offset, mask, cot, gd)]
         want["dcn_bwd_data"], want["dcn_bwd_weight"] = list(ref_grads[:3]), [ref_grads[3]]
+        if dtype == torch.bfloat16:
+            grads16 = torch.autograd.grad(ref16, in16[:4], cot.float())
+            want16["dcn_bwd_data"], want16["dcn_bwd_weight"] = list(grads16[:3]), [grads16[3]]
     torch.cuda.synchronize()
     plain = {
         "dcn_fwd": lambda: deform_conv2d_ref(*ref_in, deformable_groups=gd),
@@ -301,8 +320,8 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
     }
     launch = {  # the wrappers, as the main path calls them (zero-fills and casts included)
         "dcn_fwd": lambda: dcn.dcn_fwd(x, offset, mask, weight, bias, gd),
-        "dcn_bwd_data": lambda: dcn.dcn_bwd_data(x, offset, mask, weight, cot, gd),
-        "dcn_bwd_weight": lambda: dcn.dcn_bwd_weight(x, offset, mask, cot, gd),
+        "dcn_bwd_data": lambda: dcn.dcn_bwd_data(x_cl, offset, mask, weight, cot, gd),
+        "dcn_bwd_weight": lambda: dcn.dcn_bwd_weight(x_cl, offset, mask, cot, gd),
     }
     rows = []
     for name in names:
@@ -314,12 +333,11 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol * scale)
         line = (f"{name:14s} {label} {shape} Gd={gd} {row['dtype']:8s} "
                 f"max|err| {err:.3e} (tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
-        if name == "dcn_fwd" and dtype == torch.bfloat16:
-            with torch.no_grad():
-                ref16 = deform_conv2d_ref(*ref_in, deformable_groups=gd,
-                                          compute_dtype=torch.bfloat16)
-            err16 = float((got[name][0].float() - ref16).abs().max())
-            tol16 = 2.0 ** -8 * float(ref16.abs().max())
+        if dtype == torch.bfloat16:
+            err16 = max(float((g.float() - r).abs().max())
+                        for g, r in zip(got[name], want16[name]))
+            tol16 = ((2.0 ** -8 if name == "dcn_fwd" else 2.0 ** -8 + 1e-4)
+                     * max(float(r.abs().max()) for r in want16[name]))
             ok = ok and err16 <= tol16
             row.update(max_abs_err_plain_bf16=err16, tol_plain_bf16=tol16)
             line += (f"; vs plain bf16 columns {err16:.3e} (tol {tol16:.3e}) "
@@ -336,7 +354,7 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
                      f"{row['gb_per_s']:.0f} GB/s  {row['tflops']:.1f} TFLOP/s  "
                      f"roofline {row['roofline']:.1%}")
         print(f"[{'timing' if timed else 'kernel'}] {line}")
-        check(ok, f"{name} {label} {shape} Gd={gd} {dtype}: {err} > {tol * scale}")
+        check(ok, f"{name} {label} {shape} Gd={gd} {dtype}: {line}")
         rows.append(row)
     return rows
 
@@ -972,7 +990,7 @@ def main() -> None:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
-        if name == "dcn_fwd":  # the bf16 call of the same kind: the tensor-core path
+        if name in DCN_KERNELS:  # the bf16 call of the same kind: the tensor-core path
             r16 = next(r for r in rows if r["name"] == name and r["label"] == label
                        and r["dtype"] == "bfloat16")
             kernels[-1].update(ms_bf16=r16["ms"], bound_ms_bf16=r16["bound_ms"],

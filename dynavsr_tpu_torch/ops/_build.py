@@ -36,8 +36,8 @@ _LOG: Dict[str, str] = {}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dcn_fwd": [_VP] * 7 + [_I] * 7 + [_VP],
-    "dcn_bwd_data": [_VP] * 8 + [_I] * 7 + [_VP],
-    "dcn_bwd_weight": [_VP] * 5 + [_I] * 7 + [_VP],
+    "dcn_bwd_data": [_VP] * 9 + [_I] * 7 + [_VP],
+    "dcn_bwd_weight": [_VP] * 6 + [_I] * 7 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
     "duf_fwd": [_VP] * 3 + [_I] * 6 + [_VP],

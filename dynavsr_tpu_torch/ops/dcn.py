@@ -40,8 +40,11 @@ def reset_launch_counts() -> None:
     fwd_launches = bwd_data_launches = bwd_weight_launches = 0
 
 
-def _check(x, offset, mask, gd: int, cout: int, weight=None, bias=None, grad_out=None):
-    """Raise on anything the kernels do not take."""
+def _check(x, offset, mask, gd: int, cout: int, weight=None, bias=None, grad_out=None,
+           x_channels_last: bool = False):
+    """Raise on anything the kernels do not take. x is NCHW-contiguous, or
+    with `x_channels_last` contiguous in torch.channels_last (the layout
+    K2 and K3 read)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     if not x.is_cuda:
@@ -64,7 +67,8 @@ def _check(x, offset, mask, gd: int, cout: int, weight=None, bias=None, grad_out
         if t.dtype != x.dtype or t.dtype not in _DTYPES:
             raise ValueError(f"{name} dtype {t.dtype}: all inputs must share one of "
                              "float32 / bfloat16")
-        if not t.is_contiguous():
+        fmt = torch.channels_last if name == "x" and x_channels_last else torch.contiguous_format
+        if not t.is_contiguous(memory_format=fmt):
             raise ValueError(f"{name} must be contiguous")
 
 
@@ -72,16 +76,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tensor:
-    """K1: the forward on CUDA tensors (3x3, stride 1, padding 1). The
-    kernel samples a channels-last copy of x (its launcher writes it into
-    `x_cl` first), and takes the weight as (9, Cout, C) in bf16 (the
-    tensor-core B operand) or (9, C, Cout) in fp32."""
+def _fwd(x, offset, mask, weight, bias, deformable_groups: int):
+    """K1 on CUDA tensors: (out, x_cl), x_cl being x in torch.channels_last,
+    the copy K1's launcher makes for its gather and K2/K3 read again."""
     global fwd_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
     _check(x, offset, mask, deformable_groups, cout, weight=weight, bias=bias)
-    x_cl = torch.empty_like(x)
+    x_cl = torch.empty_like(x, memory_format=torch.channels_last)
     if x.dtype == torch.bfloat16:
         wt = weight.permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
     else:
@@ -93,60 +95,80 @@ def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tens
                      _DTYPES[x.dtype], _build.stream(x))
     _build.raise_if(rc, "dcn_fwd")
     fwd_launches += 1
-    return out
+    return out, x_cl
+
+
+def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tensor:
+    """K1: the forward on CUDA tensors (3x3, stride 1, padding 1). The
+    kernel samples a channels-last copy of x (its launcher writes it
+    first), and takes the weight as (9, Cout, C) in bf16 (the tensor-core B
+    operand) or (9, C, Cout) in fp32."""
+    return _fwd(x, offset, mask, weight, bias, deformable_groups)[0]
 
 
 def dcn_bwd_data(x, offset, mask, weight, grad_out, deformable_groups: int):
     """K2: (grad_x, grad_offset, grad_mask) on CUDA tensors, in x's dtype
-    (grad_mask is None when mask is None)."""
+    (grad_mask is None when mask is None). K2 reads x channels-last: the
+    autograd passes K1's copy; an NCHW x costs one library copy here. One
+    launch also zeroes the fp32 channels-last scratch that grad x is summed
+    into and writes grad x out of it as NCHW."""
     global bwd_data_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
+    x = x.contiguous(memory_format=torch.channels_last)  # K1's copy already is
     grad_out = grad_out.contiguous()
-    _check(x, offset, mask, deformable_groups, cout, weight=weight, grad_out=grad_out)
-    wt2 = weight.permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
-    f32 = dict(dtype=torch.float32, device=x.device)
-    gx = torch.zeros((b, c, h, w), **f32)
-    goff = torch.zeros(offset.shape, **f32)
-    gmask = None if mask is None else torch.zeros(mask.shape, **f32)
+    _check(x, offset, mask, deformable_groups, cout, weight=weight, grad_out=grad_out,
+           x_channels_last=True)
+    if x.dtype == torch.bfloat16:  # the tensor-core B operand: [c][o] per tap
+        wt = weight.permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    else:
+        wt = weight.permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
+    scratch = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
+    gx = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
+    goff = torch.empty_like(offset)
+    gmask = None if mask is None else torch.empty_like(mask)
     lib = _build.load("dcn_bwd")
-    rc = lib.dcn_bwd_data(x.data_ptr(), offset.data_ptr(), _ptr(mask), wt2.data_ptr(),
-                          grad_out.data_ptr(), gx.data_ptr(), goff.data_ptr(), _ptr(gmask),
-                          b, c, h, w, cout, deformable_groups, _DTYPES[x.dtype],
-                          _build.stream(x))
+    rc = lib.dcn_bwd_data(x.data_ptr(), offset.data_ptr(), _ptr(mask), wt.data_ptr(),
+                          grad_out.data_ptr(), scratch.data_ptr(), gx.data_ptr(),
+                          goff.data_ptr(), _ptr(gmask), b, c, h, w, cout, deformable_groups,
+                          _DTYPES[x.dtype], _build.stream(x))
     _build.raise_if(rc, "dcn_bwd_data")
     bwd_data_launches += 1
-    return (gx.to(x.dtype), goff.to(offset.dtype),
-            None if gmask is None else gmask.to(mask.dtype))
+    return gx, goff, gmask
 
 
 def dcn_bwd_weight(x, offset, mask, grad_out, deformable_groups: int) -> torch.Tensor:
-    """K3: grad_weight (Cout, C, 3, 3) on CUDA tensors, in x's dtype."""
+    """K3: grad_weight (Cout, C, 3, 3) on CUDA tensors, in x's dtype. One
+    launch also zeroes its fp32 (9, Cout, C) scratch and writes it out."""
     global bwd_weight_launches
     b, c, h, w = x.shape
     cout = grad_out.shape[1]
+    x = x.contiguous(memory_format=torch.channels_last)  # K1's copy already is
     grad_out = grad_out.contiguous()
-    _check(x, offset, mask, deformable_groups, cout, grad_out=grad_out)
-    gw = torch.zeros((cout, c, 3, 3), dtype=torch.float32, device=x.device)
+    _check(x, offset, mask, deformable_groups, cout, grad_out=grad_out, x_channels_last=True)
+    scratch = torch.empty((9, cout, c), dtype=torch.float32, device=x.device)
+    gw = torch.empty((cout, c, 3, 3), dtype=x.dtype, device=x.device)
     lib = _build.load("dcn_bwd")
-    rc = lib.dcn_bwd_weight(x.data_ptr(), offset.data_ptr(), _ptr(mask),
-                            grad_out.data_ptr(), gw.data_ptr(), b, c, h, w, cout,
+    rc = lib.dcn_bwd_weight(x.data_ptr(), offset.data_ptr(), _ptr(mask), grad_out.data_ptr(),
+                            scratch.data_ptr(), gw.data_ptr(), b, c, h, w, cout,
                             deformable_groups, _DTYPES[x.dtype], _build.stream(x))
     _build.raise_if(rc, "dcn_bwd_weight")
     bwd_weight_launches += 1
-    return gw.to(x.dtype)
+    return gw
 
 
 class DeformConv2dFunction(torch.autograd.Function):
-    """Forward K1; backward K2 (x, offset, mask) and K3 (weight); the bias
-    gradient is a plain sum of grad_out."""
+    """Forward K1; backward K2 (x, offset, mask) and K3 (weight), which
+    read the channels-last copy of x that K1 made (saved in place of x);
+    the bias gradient is a plain sum of grad_out."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, deformable_groups):
         ctx.gd = deformable_groups
         ctx.has_bias = bias is not None
-        ctx.save_for_backward(x, offset, mask, weight)
-        return dcn_fwd(x, offset, mask, weight, bias, deformable_groups)
+        out, x_cl = _fwd(x, offset, mask, weight, bias, deformable_groups)
+        ctx.save_for_backward(x_cl, offset, mask, weight)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -13,9 +13,12 @@ With `compute_dtype=torch.bfloat16` the columns and the weights are rounded
 to bf16 before the contraction: K1's function in bf16 (its tensor-core
 product takes bf16 operands), and the rounding point of JAX's
 deform_conv2d_fused, which casts its columns to the compute dtype. The
-rounding is straight-through: the gradient is that of the fp32 columns, as
-K2/K3 compute it. Its autograd is the CPU backward and the oracle the CUDA
-kernels (ops/dcn.py) are held against.
+rounding is straight-through: the gradients of x, offset and mask flow
+through the fp32 columns (grad_col = sum_o W_bf16 * grad_out, as K2 computes
+it), while grad weight = sum_p grad_out * round_bf16(columns) takes the
+rounded ones (K3's function, and JAX's, whose weight gradient sees its cast
+columns). Its autograd is the CPU backward and the oracle the CUDA kernels
+(ops/dcn.py) are held against.
 """
 
 from __future__ import annotations

@@ -136,3 +136,39 @@ def test_dcn_plain_bf16_matches_jax_fused_bf16(gd):
     np.testing.assert_allclose(got, want, rtol=0, atol=2 ** -6 * scale)
     np.testing.assert_allclose(got, want32, rtol=0, atol=2 ** -7 * scale)
     assert not np.array_equal(plain.numpy(), out32.numpy())  # the columns were rounded
+
+
+@pytest.mark.parametrize("gd", [1, 2, 8])
+def test_dcn_plain_bf16_vjp_matches_jax_fused_bf16(gd):
+    """The VJP of the port's DCN on bf16 CPU tensors (the plain version with
+    bf16 columns and weights: K2's and K3's function in bf16, grad weight
+    from the rounded columns) against JAX's deform_conv2d_fused VJP on the
+    same bf16 inputs and cotangent, for x, offset, mask and weight. Each
+    framework rounds at its own points; each stays within 2 x 2^-7 of the
+    largest fp32 gradient on the same bf16-valued inputs (about 1 x 2^-7
+    measured), so the two agree within twice that."""
+    bf = [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in _inputs(gd, seed=gd)]
+
+    def jax_grads(arrs):
+        _, vjp = jax.vjp(lambda *a: deform_conv2d_fused(*a, deformable_groups=gd),
+                         *[jnp.asarray(a) for a in arrs[:5]])
+        return [np.asarray(g).astype(np.float32) for g in vjp(jnp.asarray(arrs[5]))[:4]]
+
+    def port_grads(dtype):
+        leaves = [_nchw(a.astype(np.float32)).to(dtype).requires_grad_() for a in bf[:3]]
+        leaves.append(torch.from_numpy(bf[3].astype(np.float32).transpose(3, 2, 0, 1).copy())
+                      .to(dtype).requires_grad_())
+        bias = torch.from_numpy(bf[4].astype(np.float32)).to(dtype)
+        deform_conv2d(*leaves, bias, deformable_groups=gd).backward(
+            _nchw(bf[5].astype(np.float32)).to(dtype))
+        assert all(t.grad.dtype == dtype for t in leaves)
+        return [t.grad.float().numpy().transpose(0, 2, 3, 1) for t in leaves[:3]] + [
+            leaves[3].grad.float().numpy().transpose(2, 3, 1, 0)]
+
+    want16 = jax_grads(bf)
+    got16, got32 = port_grads(torch.bfloat16), port_grads(torch.float32)
+    for name, g16, g32, j16 in zip(("x", "offset", "mask", "weight"), got16, got32, want16):
+        tol = 2 * 2 ** -7 * float(np.abs(g32).max())
+        np.testing.assert_allclose(g16, g32, rtol=0, atol=tol, err_msg=f"port grad {name}")
+        np.testing.assert_allclose(j16, g32, rtol=0, atol=tol, err_msg=f"JAX grad {name}")
+        np.testing.assert_allclose(g16, j16, rtol=0, atol=2 * tol, err_msg=f"grad {name}")

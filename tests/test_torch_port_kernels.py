@@ -12,12 +12,13 @@ the card it runs without the repository's conftest:
 Tolerances: fp32 — the kernels and dcn_ref do the same fp32 arithmetic in
 another order (atomics in K2/K3 change it from run to run), so 1e-4 of the
 largest reference value (TF32 off). bf16 — both sides read the same bf16
-inputs; the reference runs in fp32 on them, K1 rounds its columns to bf16
-for the tensor cores and its fp32 sum to bf16 once, and K2/K3 round their
-fp32 results once, so 2^-7 of the largest reference value. K1 in bf16 is
-also held against the plain version with bf16 columns and weights
-(`compute_dtype=torch.bfloat16`, its own function): there only the
-summation order and the final rounding differ, so 2^-8. Warp
+inputs; the reference runs in fp32 on them, K1 and K3 round their columns
+to bf16 for the tensor cores, and all three round their fp32 results to
+bf16 once, so 2^-7 of the largest reference value. In bf16 the kernels
+are also held against the plain version with bf16 columns and weights
+(`compute_dtype=torch.bfloat16`, their own function): there only the
+summation order and the final rounding differ, so 2^-8 for K1, and 2^-8
+plus the fp32 tolerance for K2 and K3, whose atomics sum in any order. Warp
 (fp32 only): forward 1e-5 of the largest reference value (the same four
 products, maybe fused into FMAs); grad flow and grad x 1e-4 (grad x lands
 with atomics, in another order). DUF filter: 1e-5 of the largest
@@ -63,10 +64,25 @@ def _close(got, ref, tol):
     assert err <= bound, f"max |err| {err:.3e} > {bound:.3e}"
 
 
+def _plain_grads(x, offset, mask, weight, bias, cot, gd, compute_dtype=None):
+    """The plain version's output and gradients (x, offset, mask, weight) in
+    fp32 on the (possibly bf16-rounded) inputs; mask may be None."""
+    ref_in = [None if t is None else t.float().requires_grad_()
+              for t in (x, offset, mask, weight, bias)]
+    ref = deform_conv2d_ref(*ref_in, deformable_groups=gd, compute_dtype=compute_dtype)
+    ref.backward(cot.float())
+    return ref.detach(), [None if t is None else t.grad for t in ref_in[:4]]
+
+
+# EDVR's adaptation calls (40 SLR frames at the three pyramid levels) and
+# small shapes for the edges: C < 8, C = 128 (two chunks; at Gd 1 a group
+# spans both), 4 frames of 92x132 (a persistent walk of many tiles).
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 64, 13, 21), (3, 8, 6, 9, 7), (1, 128, 64, 11, 70),
-                                   (3, 64, 64, 92, 132)],
-                         ids=["c64", "c8", "c128", "c64_walk"])
+                                   (3, 64, 64, 92, 132), (40, 64, 64, 36, 44),
+                                   (40, 64, 64, 18, 22), (40, 64, 64, 9, 11)],
+                         ids=["c64", "c8", "c128", "c64_walk", "adapt36x44", "adapt18x22",
+                              "adapt9x11"])
 @pytest.mark.parametrize("gd", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
@@ -74,36 +90,59 @@ def test_kernels_match_plain(cuda, shape, gd, dtype, with_mask):
     b, c, cout, h, w = shape
     x, offset, mask, weight, bias, cot = _inputs(b, c, cout, h, w, gd, cuda, seed=gd)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
-    lo = [t.to(dtype) for t in (x, offset, mask, weight, bias, cot)]
-    x, offset, mask, weight, bias, cot = lo
+    x, offset, mask, weight, bias, cot = [t.to(dtype) for t in (x, offset, mask, weight, bias, cot)]
     m = mask if with_mask else None
-
-    # Plain version in fp32 on the (possibly bf16-rounded) inputs.
-    ref_in = [t.float().requires_grad_() for t in (x, offset, mask, weight, bias)]
-    ref = deform_conv2d_ref(ref_in[0], ref_in[1], ref_in[2] if with_mask else None,
-                            ref_in[3], ref_in[4], deformable_groups=gd)
-    ref.backward(cot.float())
+    ref, (rgx, rgoff, rgmask, rgw) = _plain_grads(x, offset, m, weight, bias, cot, gd)
 
     out = dcn.dcn_fwd(x, offset, m, weight, bias, gd)
     gx, goff, gmask = dcn.dcn_bwd_data(x, offset, m, weight, cot, gd)
     gw = dcn.dcn_bwd_weight(x, offset, m, cot, gd)
     torch.cuda.synchronize()
     assert out.dtype == gx.dtype == goff.dtype == gw.dtype == dtype
-    _close(out, ref, tol)
+    got = [out, gx, goff, gw] + ([gmask] if with_mask else [])
+    want = [ref, rgx, rgoff, rgw] + ([rgmask] if with_mask else [])
+    for g, r in zip(got, want):
+        _close(g, r, tol)
+    if not with_mask:
+        assert gmask is None
     if dtype == torch.bfloat16:
-        with torch.no_grad():
-            ref16 = deform_conv2d_ref(x.float(), offset.float(),
-                                      None if m is None else m.float(), weight.float(),
-                                      bias.float(), deformable_groups=gd,
+        # Each kernel's own function: the plain version with bf16 columns
+        # and weights. K1 differs from it by summation order and one
+        # rounding of its output (2^-8); K2 and K3 by one rounding of each
+        # gradient (2^-8 of a value) plus the fp32 summation order of the
+        # scatter and the flush (the fp32 tolerance, 1e-4).
+        ref16, grads16 = _plain_grads(x, offset, m, weight, bias, cot, gd,
                                       compute_dtype=torch.bfloat16)
         _close(out, ref16, 2 ** -8)
-    _close(gx, ref_in[0].grad, tol)
-    _close(goff, ref_in[1].grad, tol)
-    if with_mask:
-        _close(gmask, ref_in[2].grad, tol)
-    else:
-        assert gmask is None
-    _close(gw, ref_in[3].grad, tol)
+        for g, r in zip([gx, goff, gmask, gw], grads16):
+            if r is not None:
+                _close(g, r, 2 ** -8 + 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(40, 64, 64, 36, 44), (1, 128, 64, 11, 70)],
+                         ids=["adapt36x44", "c128"])
+@pytest.mark.parametrize("gd", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_bwd_data_near_offsets(cuda, shape, gd, dtype):
+    """Offsets within a pixel of their tap, as EDVR's are: K2 gathers such
+    samples' grad x inside a tile and adds only the corners that land in
+    another tile with atomics (the wide offsets above are mostly far)."""
+    b, c, cout, h, w = shape
+    x, offset, mask, weight, bias, cot = _inputs(b, c, cout, h, w, gd, cuda, seed=7)
+    offset = (offset - 0.37) * 0.15  # N(0, 0.3^2) pixels
+    x, offset, mask, weight, bias, cot = [t.to(dtype) for t in (x, offset, mask, weight, bias, cot)]
+    _, (rgx, rgoff, rgmask, _) = _plain_grads(x, offset, mask, weight, bias, cot, gd)
+    gx, goff, gmask = dcn.dcn_bwd_data(x, offset, mask, weight, cot, gd)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for g, r in zip([gx, goff, gmask], [rgx, rgoff, rgmask]):
+        _close(g, r, tol)
+    if dtype == torch.bfloat16:
+        _, grads16 = _plain_grads(x, offset, mask, weight, bias, cot, gd,
+                                  compute_dtype=torch.bfloat16)
+        for g, r in zip([gx, goff, gmask], grads16):
+            _close(g, r, 2 ** -8 + 1e-4)
 
 
 @pytest.mark.gpu
@@ -118,6 +157,36 @@ def test_autograd_goes_through_the_kernels(cuda):
     deform_conv2d_ref(*ref_in, deformable_groups=2).backward(cot)
     for got, want in zip(params, ref_in):
         _close(got.grad, want.grad, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_samples_all_outside_give_exact_zeros(cuda, dtype):
+    """Every tap lands outside the frame: no column, no scatter, so grad x
+    and grad weight are exactly 0 (and so are the offset and mask
+    gradients, whose corners are all outside)."""
+    x, offset, mask, weight, bias, cot = [
+        t.to(dtype) for t in _inputs(40, 64, 64, 9, 11, 8, cuda, seed=3)]
+    far = torch.full_like(offset, 50.5)
+    gx, goff, gmask = dcn.dcn_bwd_data(x, far, mask, weight, cot, 8)
+    gw = dcn.dcn_bwd_weight(x, far, mask, cot, 8)
+    torch.cuda.synchronize()
+    for t in (gx, goff, gmask, gw):
+        assert not t.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gd", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_offset_and_mask_gradients_are_deterministic(cuda, gd, dtype):
+    """grad offset and grad mask are summed without atomics: two runs give
+    the same bits (grad x and grad weight take atomics, in any order)."""
+    x, offset, mask, weight, _, cot = [
+        t.to(dtype) for t in _inputs(40, 64, 64, 36, 44, gd, cuda, seed=5)]
+    _, goff1, gmask1 = dcn.dcn_bwd_data(x, offset, mask, weight, cot, gd)
+    _, goff2, gmask2 = dcn.dcn_bwd_data(x, offset, mask, weight, cot, gd)
+    torch.cuda.synchronize()
+    assert torch.equal(goff1, goff2) and torch.equal(gmask1, gmask2)
 
 
 @pytest.mark.gpu
