@@ -67,7 +67,12 @@ Phases; any failure raises and exits non-zero:
               and, for K4 / K5, F.grid_sample, for K6 / K7 the nearest
               library composite (F.unfold + einsum: two calls, so no
               library_ms); their sum over a clip's launches is set beside
-              the profiler's device time for the same kernels.
+              the profiler's device time for the same kernels. K4-K7 are
+              also timed apart from their wrappers (kernel_times.py's
+              helpers): `kernel_ms`, one launch's device time from a CUDA
+              graph of 20 wrapper calls, `host_us`, one wrapper call's host
+              time, and `kernel_roofline` = bound / kernel_ms; the profile
+              splits their device time per clip by call size.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -103,6 +108,8 @@ from dynavsr_tpu_torch.ops import _build, dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
 from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
+from kernel_times import REPS, graph_ms, host_us
+from kernel_times import event_ms as cuda_ms
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -175,6 +182,8 @@ PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",),
              "dcn_bwd_weight": ("bwd::gw_zero", "bwd::gw_to_oihw")}
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
 DUF_KERNELS = ("duf_fwd", "duf_bwd")
+# The K4-K7 wrappers by module: the profile splits their time by call size.
+SIZED = {"warp_fwd": warp, "warp_bwd": warp, "duf_fwd": duf_filter, "duf_bwd": duf_filter}
 
 
 def reset_all_counts() -> None:
@@ -192,17 +201,20 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def wrapper_times(launch, bound_ms: float) -> dict:
+    """A K4-K7 wrapper call's times: `ms`, CUDA events around 20 calls (the
+    number the earlier rows hold; for a call of a few us it is the host's);
+    `kernel_ms`, one launch's device time from a CUDA graph of 20 calls
+    (whose last output is checked after a replay); `host_us`, one call's
+    host time; and both roofline shares of `bound_ms`."""
+    ms, kernel_ms = cuda_ms(launch, reps=REPS), graph_ms(launch)[0]
+    return dict(ms=ms, kernel_ms=kernel_ms, host_us=host_us(launch), roofline=bound_ms / ms,
+                kernel_roofline=bound_ms / kernel_ms)
+
+
+def times_text(row: dict) -> str:
+    return (f"{row['ms']:.4f} ms (kernel {row['kernel_ms']:.4f} ms, host "
+            f"{row['host_us']:.1f} us a call)")
 
 
 # ------------------------------------------------------------- phase 1, 2
@@ -364,7 +376,7 @@ def warp_bound(name, shape, need_x):
     H, W) frames and (B, 2, H, W) flows: each input read once, each output
     written once. K4 reads x and the flow and writes out (2C + 2 values a
     pixel); K5 reads x, the flow and grad_out and writes grad flow, and
-    grad x when asked for (3C + 4 + [C]). Operations: ~10 a pixel for the
+    grad x when asked for (2C + 4 + [C]). Operations: ~10 a pixel for the
     position and corner weights, then 7 (K4) or 12 (K5, +8 with grad x) a
     channel."""
     b, c, h, w = shape
@@ -425,25 +437,28 @@ def warp_against_plain(label, x, flow, cot, need_x, timed):
             lib = F.grid_sample(x_l, grid, mode="bilinear", padding_mode="zeros",
                                 align_corners=True)
             if name == "warp_fwd":
-                ms = cuda_ms(lambda: warp.warp_fwd(x, flow), reps=20)
+                launch = lambda: warp.warp_fwd(x, flow)  # noqa: E731
                 plain_ms = cuda_ms(lambda: grid_sample_ref.warp_nchw(x, flow), reps=5)
                 library_ms = cuda_ms(lambda: F.grid_sample(
                     x, grid.detach(), mode="bilinear", padding_mode="zeros",
                     align_corners=True), reps=20)
             else:
                 lib_wrt = [grid, x_l] if need_x else [grid]
-                ms = cuda_ms(lambda: warp.warp_bwd(x, flow, cot, need_x=need_x), reps=20)
+                launch = lambda: warp.warp_bwd(x, flow, cot, need_x=need_x)  # noqa: E731
                 plain_ms = cuda_ms(lambda: torch.autograd.grad(ref, wrt, cot, retain_graph=True),
                                    reps=5)
                 library_ms = cuda_ms(lambda: torch.autograd.grad(lib, lib_wrt, cot,
                                                                  retain_graph=True), reps=20)
+            check(not need_x, "the timed K5 computes grad flow only, as on TOF's path")
             bound_ms, bound_by, nbytes, flops = warp_bound(name, shape, need_x)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes, flops=flops,
-                       gb_per_s=nbytes / ms / 1e6, roofline=bound_ms / ms)
-            line += (f"  {ms:.4f} ms  plain {plain_ms:.4f} ms  F.grid_sample {library_ms:.4f} ms"
-                     f"  bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)  "
-                     f"{row['gb_per_s']:.0f} GB/s  roofline {row['roofline']:.1%}")
+            row.update(library_ms=library_ms, **wrapper_times(launch, bound_ms),
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       flops=flops)
+            row.update(gb_per_s=nbytes / row["ms"] / 1e6)
+            line += (f"  {times_text(row)}  plain {plain_ms:.4f} ms  F.grid_sample "
+                     f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}: "
+                     f"{nbytes / 1e6:.2f} MB)  {row['gb_per_s']:.0f} GB/s  "
+                     f"roofline {row['roofline']:.1%} (kernel {row['kernel_roofline']:.1%})")
         print(f"[{'timing' if timed else 'kernel'}] {line}")
         check(ok, f"{name} {label} {shape}: {err} > {tol * scale}")
         rows.append(row)
@@ -520,22 +535,24 @@ def duf_against_plain(label, x, f, cot, need_x, timed):
             comp_err, comp_ok, _ = within(comp, want[name][0])
             check(comp_ok, f"{name} {label}: the unfold + einsum composite differs by {comp_err}")
             if name == "duf_fwd":
-                ms = cuda_ms(lambda: duf_filter.duf_fwd(x, f), reps=20)
+                launch = lambda: duf_filter.duf_fwd(x, f)  # noqa: E731
                 plain_ms = cuda_ms(lambda: dynamic_upsampling_filter_ref(x, f), reps=5)
             else:
-                ms = cuda_ms(lambda: duf_filter.duf_bwd(x, f, cot, need_x=need_x), reps=20)
+                launch = lambda: duf_filter.duf_bwd(x, f, cot, need_x=need_x)  # noqa: E731
                 plain_ms = cuda_ms(lambda: torch.autograd.grad(ref, wrt, cot, retain_graph=True),
                                    reps=5)
             composite_ms = cuda_ms(lambda: duf_composite(name, x, f, cot), reps=20)
             check(not need_x, "the timed K7 computes grad filters only, as on DUF's path")
             bound_ms, bound_by, nbytes, flops = duf_bound(shape, f.shape[2], fdtype)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=None, composite_ms=composite_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-                       gb_per_s=nbytes / ms / 1e6, roofline=bound_ms / ms)
-            line += (f"  {ms:.4f} ms  plain {plain_ms:.4f} ms  library none (one call); "
+            row.update(library_ms=None, **wrapper_times(launch, bound_ms),
+                       plain_ms=plain_ms, composite_ms=composite_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, flops=flops)
+            row.update(gb_per_s=nbytes / row["ms"] / 1e6)
+            line += (f"  {times_text(row)}  plain {plain_ms:.4f} ms  library none (one call); "
                      f"unfold+einsum {composite_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}: "
                      f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
-                     f"{row['gb_per_s']:.0f} GB/s  roofline {row['roofline']:.1%}")
+                     f"{row['gb_per_s']:.0f} GB/s  roofline {row['roofline']:.1%} "
+                     f"(kernel {row['kernel_roofline']:.1%})")
         print(f"[{'timing' if timed else 'kernel'}] {line}")
         check(ok, f"{name} {label} {shape} {fdtype}: {err} > tolerance")
         rows.append(row)
@@ -889,6 +906,7 @@ def phase_recorded_timing(tag: str, calls: dict, profiles: dict, kernels, agains
     fwd, _ = kernels
     for dt_name, by_kind in calls.items():
         per_clip = dict.fromkeys(kernels, 0.0)
+        per_clip_kernel = dict.fromkeys(kernels, 0.0)
         for label, rec in sorted(by_kind.items()):
             check(rec["bwd"] == 0 or rec.get("cot") is not None,
                   f"{label}: no gradient recorded")
@@ -896,12 +914,15 @@ def phase_recorded_timing(tag: str, calls: dict, profiles: dict, kernels, agains
                 row["per_clip"] = rec["count"] if row["name"] == fwd else rec["bwd"]
                 row["run"] = dt_name
                 per_clip[row["name"]] += row["ms"] * row["per_clip"]
+                per_clip_kernel[row["name"]] += row["kernel_ms"] * row["per_clip"]
                 rows.append(row)
         prof = profiles.get(dt_name, {})
         print(f"[timing] {tag}-{dt_name}-windows per clip: timed launches x calls "
-              f"{ {k: round(v, 3) for k, v in per_clip.items()} } ms; profiler's kernel "
-              f"time {prof.get('kernel_ms', 'not measured')} ms over "
-              f"{prof.get('kernel_n', 'not measured')} launches")
+              f"{ {k: round(v, 3) for k, v in per_clip.items()} } ms (kernel time from the "
+              f"graphs { {k: round(v, 3) for k, v in per_clip_kernel.items()} } ms); "
+              f"profiler's kernel time {prof.get('kernel_ms', 'not measured')} ms over "
+              f"{prof.get('kernel_n', 'not measured')} launches; by call size "
+              f"{prof.get('by_size', 'not measured')}")
     return rows
 
 
@@ -909,20 +930,43 @@ def profile_clip(run, mode: str, smi: str, names) -> dict:
     """One clip under torch.profiler: device time by kernel, the share of
     the port's kernels `names` (with their PROLOGUES), and the device's
     idle share of the profiled wall time (1 - union of kernel intervals /
-    wall; the profiler's own overhead lengthens the wall time)."""
+    wall; the profiler's own overhead lengthens the wall time). The K4-K7
+    among `names` are also split by call size (batch x height x width): the
+    wrappers' calls are recorded in order, and their launches, all on one
+    stream, run in that order."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    sized = [k for k in names if k in SIZED]
+    sizes = {k: [] for k in sized}
+    wrappers = {k: getattr(SIZED[k], k) for k in sized}
+
+    def recording(k):
+        def call(x, *args, **kwargs):
+            sizes[k].append(warp_label("", x.shape).strip())
+            return wrappers[k](x, *args, **kwargs)
+        return call
+
+    for k in sized:
+        setattr(SIZED[k], k, recording(k))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for k in sized:
+            setattr(SIZED[k], k, wrappers[k])
     spans, by_name, n_by_name = [], {}, {}
+    launches = {k: [] for k in sized}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
                 and not getattr(e, "is_user_annotation", False)):  # kernels and copies
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
+            for k in sized:
+                if f"{k}_kernel" in e.name:
+                    launches[k].append((e.time_range.start, e.time_range.elapsed_us()))
     if not spans:
         print(f"[profile] {mode}: the profiler recorded no device events (not measured)")
         return {}
@@ -935,16 +979,29 @@ def profile_clip(run, mode: str, smi: str, names) -> dict:
                    if any(p in n for p in (f"{k}_kernel", *PROLOGUES.get(k, ()))))
             for k in names}
     k_n = {k: sum(v for n, v in n_by_name.items() if f"{k}_kernel" in n) for k in names}
+    by_size = {}
+    for k in sized:
+        if len(launches[k]) != len(sizes[k]):
+            by_size[k] = (f"not measured ({len(launches[k])} launches profiled, "
+                          f"{len(sizes[k])} calls)")
+            continue
+        split = {}
+        for size, (_, us) in zip(sizes[k], sorted(launches[k])):
+            n, ms = split.get(size, (0, 0.0))
+            split[size] = (n + 1, ms + us / 1e3)
+        by_size[k] = {size: [n, round(ms, 4)] for size, (n, ms) in sorted(split.items())}
     print(f"[profile] {mode}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, "
           f"idle share {1 - busy / wall_us:.1%}; the port's kernels "
           f"{ {k: round(v / 1e3, 2) for k, v in k_us.items()} } ms = "
           f"{sum(k_us.values()) / total:.1%} of device time  [{smi}]")
+    if by_size:
+        print(f"[profile] {mode}: by call size, [launches, ms]: {by_size}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
         print(f"[profile] {mode}:   {us / 1e3:8.2f} ms {us / total:6.1%}  {name[:90]}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
                 kernel_ms={k: round(v / 1e3, 3) for k, v in k_us.items()}, kernel_n=k_n,
-                kernel_share=sum(k_us.values()) / total,
+                kernel_share=sum(k_us.values()) / total, by_size=by_size,
                 top=[(n, us / 1e3) for n, us in top])
 
 
@@ -990,11 +1047,15 @@ def main() -> None:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
-        if name in DCN_KERNELS:  # the bf16 call of the same kind: the tensor-core path
+        if "kernel_ms" in row:  # K4-K7: the device time of a launch, the host's of a call
+            kernels[-1].update({k: row[k] for k in ("kernel_ms", "host_us", "kernel_roofline")})
+        if name in DCN_KERNELS + DUF_KERNELS:  # the bf16 call of the same kind
             r16 = next(r for r in rows if r["name"] == name and r["label"] == label
                        and r["dtype"] == "bfloat16")
             kernels[-1].update(ms_bf16=r16["ms"], bound_ms_bf16=r16["bound_ms"],
                                max_abs_err_bf16=r16["max_abs_err"])
+            if "kernel_ms" in r16:
+                kernels[-1].update(kernel_ms_bf16=r16["kernel_ms"], host_us_bf16=r16["host_us"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,

@@ -1,6 +1,6 @@
 // Shared pieces of the dynamic-upsampling-filter kernels (duf_fwd.cu,
-// duf_bwd.cu): filter loads and stores for fp32 and bf16, and the block's
-// shared-memory tile of x with its 2-pixel zero halo.
+// duf_bwd.cu): the layouts, filter loads for fp32 and bf16, and K6's
+// shared-memory tile of x with its 2-pixel zero halo (K7 shapes its own).
 //
 // Layouts (NCHW planes, contiguous), the layout the port's DUF holds:
 //   x       (B, C, H, W)         fp32, the centre frame
@@ -26,8 +26,6 @@ constexpr int kHaloH = kTileH + 2 * kRad;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Load the (kTileH + 4) x (kTileW + 4) window of x's C planes that the
 // block's pixels read, zeros outside the frame, into `tile` (C planes of

@@ -12,72 +12,182 @@
 //   grad_x[b,c,y,x]   += g[b,c,i,j] * wy * wx      for each inside corner (y, x)
 //
 // with v = 0 for a corner outside the frame; floor contributes no gradient,
-// as under JAX autodiff. grad_flow is a gather: each thread owns its pixel's
-// two values and needs no atomics. It is always computed: wherever the
-// backward runs, the flow comes from SpyNet's parameters and needs it.
-// grad_x is a scatter (several output pixels sample one input pixel) and
-// lands with fp32 atomics into a buffer the wrapper zeroes; it is computed
-// only when asked for (on TOF's adaptation path x is input data and it
-// never is).
+// as under JAX autodiff. grad_flow is a gather: each thread owns its pixels'
+// values and needs no atomics. It is always computed: wherever the backward
+// runs, the flow comes from SpyNet's parameters and needs it. grad_x is a
+// scatter (several output pixels sample one input pixel) and lands with
+// fp32 atomics into a buffer the wrapper zeroes; it is computed only when
+// asked for (on TOF's adaptation path x is input data and it never is), and
+// that path is kept correct, not fast.
 //
-// What bounds it on the H100: bytes, as K4 (reads x's corners, the flow and g,
-// writes grad_flow; with grad_x, C atomics a corner more). At the
-// adaptation shapes it runs (8 frames of 36x44 to 144x176, 0.1-3 MB) a call
-// is launch-bound, and this kernel does nothing about that.
+// What bounds it on the H100 (80GB HBM3, 700 W; PERF.md): bytes, and launch
+// latency at the small calls. Per pixel it reads 2 flow values, C = 3
+// gradient values and C samples' corners (neighbours, mostly from L1/L2)
+// and writes 2 values: 10 fp32 values a pixel with each input read once,
+// 8.1 MB at the largest call of the path (8 frames of 144x176), 2.4 us at
+// 3.35 TB/s. Its calls (8 frames of 36x44 to 144x176) are short, so a
+// thread's chain of dependent loads and the number of SMs a call reaches
+// set the time more than the bytes do. The first version (one thread per
+// pixel on a flat grid, 64-bit divisions for its coordinates, one scalar
+// flow value and one channel's loads at a time) filled 50 of the 132 SMs at
+// 36x44.
 //
-// Design: one thread per output pixel, all C channels, as K4; the corner
-// weights and inside flags are formed once per pixel.
+// Design: K4's layout for the backward. A 3-D grid (column pairs, rows,
+// frames), so a thread finds its pixels with no division. A thread owns 2
+// consecutive pixels of one row: where W is even (W = 176, 88, 44, 22 on the
+// path) it reads their flows and each channel's gradient as float2 and
+// writes each grad_flow plane as one float2; other widths take the same path
+// one pixel at a time. The gradient loads do not depend on the flow and are
+// issued with it; for C = 3 (TOFlow's frames) all 2 x 4 x 3 = 24 corner loads
+// are issued before the first FMA, so a thread waits for two memory round
+// trips (flow, then corners). The launcher shapes the block to the frame
+// (launch_shape): at 36x44 one-warp blocks of 8 column pairs x 4 rows, 216
+// of them, so the call reaches every SM. Whether a corner is inside is
+// decided in float (warp_common.cuh:make_corners), so positions of +-1e30
+// give exact zeros.
 #include "warp_common.cuh"
 
 namespace warp {
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kPx = 2;  // consecutive pixels per thread
+
+// kC: channels handled per pass, unrolled (3), or 0 for one channel a pass
+// over C taken at run time. kNeedX: also scatter grad_x.
+template <int kC, bool kNeedX>
+__global__ void __launch_bounds__(256)
 warp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flow,
                 const float* __restrict__ gout, float* __restrict__ gx,
-                float* __restrict__ gflow, int B, int C, int H, int W) {
-  const int hw = H * W;
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (int64_t)B * hw) return;
-  const int64_t b = t / hw;
-  const int p = (int)(t % hw);
-  float ys, xs;
-  position(flow, b, p, hw, W, &ys, &xs);
-  const Corners k = make_corners(ys, xs, H, W);
-  const int q = k.y0 * W + k.x0;
-  float gxs = 0.f, gys = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float g = __ldg(gout + (b * C + c) * hw + p);
-    const float* plane = x + (b * C + c) * hw;
-    const float v00 = k.in00 ? __ldg(plane + q) : 0.f;
-    const float v01 = k.in01 ? __ldg(plane + q + 1) : 0.f;
-    const float v10 = k.in10 ? __ldg(plane + q + W) : 0.f;
-    const float v11 = k.in11 ? __ldg(plane + q + W + 1) : 0.f;
-    gxs += g * (k.wy0 * (v01 - v00) + k.wy1 * (v11 - v10));
-    gys += g * (k.wx0 * (v10 - v00) + k.wx1 * (v11 - v01));
-    if (gx) {
-      float* gplane = gx + (b * C + c) * hw;
-      if (k.in00) atomicAdd(gplane + q, g * (k.wy0 * k.wx0));
-      if (k.in01) atomicAdd(gplane + q + 1, g * (k.wy0 * k.wx1));
-      if (k.in10) atomicAdd(gplane + q + W, g * (k.wy1 * k.wx0));
-      if (k.in11) atomicAdd(gplane + q + W + 1, g * (k.wy1 * k.wx1));
+                float* __restrict__ gflow, int C_, int H, int W, bool vec) {
+  constexpr int kCu = kC > 0 ? kC : 1;
+  const int C = kC > 0 ? kC : C_;
+  const int j0 = (blockIdx.x * blockDim.x + threadIdx.x) * kPx;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= H || j0 >= W) return;
+  const int64_t hw = (int64_t)H * W, b = blockIdx.z;
+  const int row = i * W + j0;
+  const int n = vec ? kPx : min(kPx, W - j0);
+
+  // Two values of a plane at this thread's pixels.
+  auto load2 = [&](const float* p, float* v) {
+    if (vec) {
+      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = a.x, v[1] = a.y;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPx; ++e) v[e] = e < n ? __ldg(p + e) : 0.f;
+    }
+  };
+
+  float fx[kPx], fy[kPx];
+  const float* fxp = flow + b * 2 * hw + row;
+  load2(fxp, fx);
+  load2(fxp + hw, fy);
+  Corners k[kPx];
+  int q[kPx];
+#pragma unroll
+  for (int e = 0; e < kPx; ++e) {
+    k[e] = make_corners((float)i + fy[e], (float)(j0 + e) + fx[e], H, W);
+    q[e] = k[e].y0 * W + k[e].x0;
+  }
+
+  float gxs[kPx] = {}, gys[kPx] = {};
+  for (int c0 = 0; c0 < C; c0 += kCu) {
+    float g[kCu][kPx], v[kCu][kPx][4];
+#pragma unroll
+    for (int c = 0; c < kCu; ++c) {
+      load2(gout + (b * C + c0 + c) * hw + row, g[c]);
+      const float* plane = x + (b * C + c0 + c) * hw;
+#pragma unroll
+      for (int e = 0; e < kPx; ++e) {
+        v[c][e][0] = k[e].in00 ? __ldg(plane + q[e]) : 0.f;
+        v[c][e][1] = k[e].in01 ? __ldg(plane + q[e] + 1) : 0.f;
+        v[c][e][2] = k[e].in10 ? __ldg(plane + q[e] + W) : 0.f;
+        v[c][e][3] = k[e].in11 ? __ldg(plane + q[e] + W + 1) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCu; ++c) {
+#pragma unroll
+      for (int e = 0; e < kPx; ++e) {
+        const Corners& s = k[e];
+        const float* u = v[c][e];
+        gxs[e] += g[c][e] * (s.wy0 * (u[1] - u[0]) + s.wy1 * (u[3] - u[2]));
+        gys[e] += g[c][e] * (s.wx0 * (u[2] - u[0]) + s.wx1 * (u[3] - u[1]));
+        if (kNeedX && e < n) {
+          float* gplane = gx + (b * C + c0 + c) * hw;
+          const float gv = g[c][e];
+          if (s.in00) atomicAdd(gplane + q[e], gv * (s.wy0 * s.wx0));
+          if (s.in01) atomicAdd(gplane + q[e] + 1, gv * (s.wy0 * s.wx1));
+          if (s.in10) atomicAdd(gplane + q[e] + W, gv * (s.wy1 * s.wx0));
+          if (s.in11) atomicAdd(gplane + q[e] + W + 1, gv * (s.wy1 * s.wx1));
+        }
+      }
     }
   }
-  gflow[(b * 2) * hw + p] = gxs;
-  gflow[(b * 2 + 1) * hw + p] = gys;
+
+  float* dx = gflow + b * 2 * hw + row;
+  float* dy = dx + hw;
+  if (vec) {
+    *reinterpret_cast<float2*>(dx) = make_float2(gxs[0], gxs[1]);
+    *reinterpret_cast<float2*>(dy) = make_float2(gys[0], gys[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPx; ++e)
+      if (e < n) dx[e] = gxs[e], dy[e] = gys[e];
+  }
+}
+
+// The card's SM count, asked once.
+static int sm_count() {
+  static const int n = [] {
+    int dev = 0, nsm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    return nsm;
+  }();
+  return n;
+}
+
+static bool aligned8(const void* p) { return (uintptr_t)p % 8 == 0; }
+
+// The block (column pairs x rows) for an H x W frame: as narrow as the row
+// allows (8, 16 or 32 pairs), then rows halved from 256 threads a block
+// down to one warp until B frames make at least two blocks an SM.
+static void launch_shape(int B, int H, int W, dim3* grid, dim3* block) {
+  const int cols = (W + kPx - 1) / kPx;
+  const int bx = cols >= 64 ? 32 : cols >= 32 ? 16 : 8;
+  int by = 256 / bx;
+  auto blocks = [&](int y) {
+    return (int64_t)((cols + bx - 1) / bx) * ((H + y - 1) / y) * B;
+  };
+  while (bx * by > 32 && blocks(by) < 2 * sm_count()) by /= 2;
+  *block = dim3(bx, by);
+  *grid = dim3((cols + bx - 1) / bx, (H + by - 1) / by, B);
 }
 
 }  // namespace warp
 
 // x (B, C, H, W), flow (B, 2, H, W), gout (B, C, H, W); gx (B, C, H, W),
-// zeroed by the caller, or null; gflow (B, 2, H, W). fp32, contiguous.
-// Returns cudaGetLastError() after the launch.
+// zeroed by the caller, or null; gflow (B, 2, H, W). fp32, contiguous;
+// B <= 65535. Returns cudaGetLastError() after the launch.
 extern "C" int warp_bwd(const void* x, const void* flow, const void* gout, void* gx,
                         void* gflow, int B, int C, int H, int W, void* stream) {
-  const int64_t n = (int64_t)B * H * W;
-  if (n == 0) return 0;
-  const unsigned blocks = (unsigned)((n + warp::kThreads - 1) / warp::kThreads);
-  warp::warp_bwd_kernel<<<blocks, warp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)flow, (const float*)gout, (float*)gx, (float*)gflow, B,
-      C, H, W);
+  if ((int64_t)B * H * W == 0) return 0;
+  dim3 grid, block;
+  warp::launch_shape(B, H, W, &grid, &block);
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *xp = (const float*)x, *fp = (const float*)flow, *gp = (const float*)gout;
+  float *gxp = (float*)gx, *gfp = (float*)gflow;
+  // Both pixels of a pair lie in the row, their planes 8-byte aligned.
+  const bool vec = W % warp::kPx == 0 && warp::aligned8(flow) && warp::aligned8(gout) &&
+                   warp::aligned8(gflow);
+  if (C == 3 && gx)
+    warp::warp_bwd_kernel<3, true><<<grid, block, 0, s>>>(xp, fp, gp, gxp, gfp, C, H, W, vec);
+  else if (C == 3)
+    warp::warp_bwd_kernel<3, false><<<grid, block, 0, s>>>(xp, fp, gp, gxp, gfp, C, H, W, vec);
+  else if (gx)
+    warp::warp_bwd_kernel<0, true><<<grid, block, 0, s>>>(xp, fp, gp, gxp, gfp, C, H, W, vec);
+  else
+    warp::warp_bwd_kernel<0, false><<<grid, block, 0, s>>>(xp, fp, gp, gxp, gfp, C, H, W, vec);
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,6 @@
 
 namespace warp {
 
-constexpr int kThreads = 256;
-
 // One sample position. The corner weights come from floor of the
 // unclamped position, in fp32, as the JAX function computes them. Whether a
 // corner is inside is decided in float before any int conversion, so a
@@ -47,13 +45,6 @@ __device__ __forceinline__ Corners make_corners(float ys, float xs, int H, int W
   c.y0 = (iy0 || iy1) ? (int)y0f : 0;
   c.x0 = (ix0 || ix1) ? (int)x0f : 0;
   return c;
-}
-
-// The sample position of output pixel p = (i, j): (i + dy, j + dx).
-__device__ __forceinline__ void position(const float* __restrict__ flow, int64_t b, int p,
-                                         int hw, int W, float* ys, float* xs) {
-  *xs = (float)(p % W) + __ldg(flow + (b * 2) * hw + p);
-  *ys = (float)(p / W) + __ldg(flow + (b * 2 + 1) * hw + p);
 }
 
 }  // namespace warp

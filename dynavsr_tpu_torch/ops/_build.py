@@ -19,7 +19,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "build", "load", "lib_path", "stream", "raise_if"]
+__all__ = ["SOURCES", "build", "load", "lib_path", "stream", "raise_if",
+           "refuse_double_backward"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -101,11 +102,27 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream(x: torch.Tensor) -> int:
-    """The current CUDA stream of x's device, as a launcher's last argument."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The current CUDA stream of x's device (the capture stream while a CUDA
+    graph is captured), as a launcher's last argument: the raw handle,
+    without building a `torch.cuda.Stream` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def raise_if(rc: int, name: str) -> None:
     """Raise on a launcher's nonzero cudaError."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def refuse_double_backward(kernels: str) -> None:
+    """Raise inside an autograd `backward` that runs the kernels `kernels`
+    when the caller asked for `create_graph=True` (grad mode is on there
+    exactly then). The kernels fill their gradients through ctypes, so
+    those gradients carry no graph, and a second-order gradient would
+    silently lose every term through them."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            f"a double backward (create_graph=True) through the CUDA kernels {kernels} is "
+            "not implemented: their second-order terms would be dropped. Meta-training "
+            "chooses between double-backward kernels and running second-order steps "
+            "through the plain ops (ROADMAP A.5).")

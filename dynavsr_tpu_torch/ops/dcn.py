@@ -160,7 +160,8 @@ def dcn_bwd_weight(x, offset, mask, grad_out, deformable_groups: int) -> torch.T
 class DeformConv2dFunction(torch.autograd.Function):
     """Forward K1; backward K2 (x, offset, mask) and K3 (weight), which
     read the channels-last copy of x that K1 made (saved in place of x);
-    the bias gradient is a plain sum of grad_out."""
+    the bias gradient is a plain sum of grad_out. First order only: a
+    double backward raises (`_build.refuse_double_backward`)."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, deformable_groups):
@@ -172,6 +173,7 @@ class DeformConv2dFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        _build.refuse_double_backward("K2 dcn_bwd_data / K3 dcn_bwd_weight")
         x, offset, mask, weight = ctx.saved_tensors
         need = ctx.needs_input_grad
         gx = goff = gmask = gw = gb = None

@@ -115,7 +115,8 @@ def duf_bwd(x: torch.Tensor, filters: torch.Tensor, grad_out: torch.Tensor, need
 
 
 class DufFilterFunction(torch.autograd.Function):
-    """Forward K6; backward K7 (grad x only when x needs it)."""
+    """Forward K6; backward K7 (grad x only when x needs it). First order
+    only: a double backward raises (`_build.refuse_double_backward`)."""
 
     @staticmethod
     def forward(ctx, x, filters):
@@ -124,6 +125,7 @@ class DufFilterFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        _build.refuse_double_backward("K7 duf_bwd")
         x, filters = ctx.saved_tensors
         gx, gf = duf_bwd(x, filters, grad_out, need_x=ctx.needs_input_grad[0])
         return gx, gf if ctx.needs_input_grad[1] else None

@@ -53,6 +53,8 @@ def _check(x, flow, grad_out=None) -> None:
         raise ValueError(f"flow {tuple(flow.shape)} does not fit x {tuple(x.shape)}")
     if b * max(c, 2) * h * w >= 2 ** 31:
         raise ValueError("tensor too large for the kernels' 32-bit plane indexing")
+    if b > 65535:
+        raise ValueError(f"x has {b} frames: the kernels' grid takes at most 65535")
     for name, t in (("x", x), ("flow", flow), ("grad_out", grad_out)):
         if t is None:
             continue
@@ -98,7 +100,8 @@ def warp_bwd(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, need_x
 
 
 class WarpFunction(torch.autograd.Function):
-    """Forward K4; backward K5 (grad x only when x needs it)."""
+    """Forward K4; backward K5 (grad x only when x needs it). First order
+    only: a double backward raises (`_build.refuse_double_backward`)."""
 
     @staticmethod
     def forward(ctx, x, flow):
@@ -107,6 +110,7 @@ class WarpFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        _build.refuse_double_backward("K5 warp_bwd")
         x, flow = ctx.saved_tensors
         gx, gflow = warp_bwd(x, flow, grad_out, need_x=ctx.needs_input_grad[0])
         return gx, gflow if ctx.needs_input_grad[1] else None

@@ -222,8 +222,10 @@ def _plain_warp_grads(x, flow, cot):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 3, 13, 21), (8, 3, 36, 44), (3, 5, 7, 9), (1, 3, 1, 64),
-                                   (2, 3, 24, 704)],
-                         ids=["c3", "adapt36x44", "c5", "one_row", "w704"])
+                                   (2, 3, 24, 704), (8, 3, 18, 22), (8, 3, 72, 88),
+                                   (8, 3, 144, 176), (2, 3, 9, 1)],
+                         ids=["c3", "adapt36x44", "c5", "one_row", "w704", "adapt18x22",
+                              "adapt72x88", "adapt144x176", "w1"])
 def test_warp_kernels_match_plain(cuda, shape):
     x, flow, cot = _warp_inputs(*shape, cuda, seed=sum(shape))
     ref, ref_gx, ref_gf = _plain_warp_grads(x, flow, cot)
@@ -236,6 +238,20 @@ def test_warp_kernels_match_plain(cuda, shape):
     _close(gf, ref_gf, 1e-4)
     _close(gx, ref_gx, 1e-4)
     assert torch.equal(gf_only, gf)  # a gather: no atomics, the same order
+
+
+@pytest.mark.gpu
+def test_warp_bwd_takes_views_at_an_odd_offset(cuda):
+    """K5 reads flow and grad_out as float2 only where they are 8-byte
+    aligned: contiguous views that start one float into their storage take
+    the scalar path and give the same values."""
+    x, flow, cot = _warp_inputs(2, 3, 12, 22, cuda, seed=6)
+    shifted = [torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape).copy_(t)
+               for t in (flow, cot)]
+    _, gf = warp.warp_bwd(x, flow, cot, need_x=False)
+    _, gf_shifted = warp.warp_bwd(x, *shifted, need_x=False)
+    torch.cuda.synchronize()
+    assert torch.equal(gf_shifted, gf)
 
 
 @pytest.mark.gpu
@@ -305,9 +321,10 @@ def _plain_duf_grads(x, f, cot):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 3, 1, 64), (3, 3, 7, 9), (8, 3, 36, 44), (2, 5, 13, 40)],
-                         ids=["one_row", "3x7x9", "adapt36x44", "c5"])
-@pytest.mark.parametrize("r", [4, 16])
+@pytest.mark.parametrize("shape", [(1, 3, 1, 64), (3, 3, 7, 9), (8, 3, 36, 44), (2, 5, 13, 40),
+                                   (2, 1, 9, 12), (1, 16, 10, 23)],
+                         ids=["one_row", "3x7x9", "adapt36x44", "c5", "c1", "c16_odd_w"])
+@pytest.mark.parametrize("r", [1, 3, 4, 16])
 @pytest.mark.parametrize("fdtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_duf_kernels_match_plain(cuda, shape, r, fdtype):
     b, c, h, w = shape
@@ -326,6 +343,20 @@ def test_duf_kernels_match_plain(cuda, shape, r, fdtype):
         torch.testing.assert_close(gf.float(), ref_gf.float(), rtol=2 ** -7,
                                    atol=1e-5 * float(ref_gf.float().abs().max()))
     assert torch.equal(gf_only, gf)  # a gather: no atomics, the same order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fdtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_duf_bwd_takes_a_gradient_at_an_odd_offset(cuda, fdtype):
+    """K7 reads the gradient as float2 only where it is 8-byte aligned: a
+    contiguous view that starts one float into its storage takes the
+    scalar path and gives the same values."""
+    x, f, cot = _duf_inputs(2, 3, 16, 12, 22, fdtype, cuda, seed=6)
+    shifted = torch.empty(cot.numel() + 1, device=cuda)[1:].view(cot.shape).copy_(cot)
+    _, gf = duf_filter.duf_bwd(x, f, cot, need_x=False)
+    _, gf_shifted = duf_filter.duf_bwd(x, f, shifted, need_x=False)
+    torch.cuda.synchronize()
+    assert torch.equal(gf_shifted, gf)
 
 
 @pytest.mark.gpu
@@ -370,3 +401,33 @@ def test_duf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         duf_filter.duf_fwd(torch.zeros(1, 17, 8, 8, device=cuda), f)
     with pytest.raises(ValueError, match="grad_out"):
         duf_filter.duf_bwd(x, f, cot[:, :5], need_x=True)
+
+
+def _second_order_case(op, device):
+    """A loss sum(op(theta)^2) + sum(theta^3) through the port's autograd
+    Function, with theta the flow (K4/K5), the filters (K6/K7) or the
+    offsets (K1-K3); the other inputs fixed."""
+    if op == "warp":
+        x, flow, _ = _warp_inputs(2, 3, 8, 12, device, seed=7)
+        return (lambda t: warp.WarpFunction.apply(x, t)), flow
+    if op == "duf":
+        x, f, _ = _duf_inputs(2, 3, 4, 8, 12, torch.float32, device, seed=7)
+        return (lambda t: duf_filter.DufFilterFunction.apply(x, t)), f
+    x, offset, mask, weight, bias, _ = _inputs(2, 16, 16, 8, 12, 2, device, seed=7)
+    return (lambda t: dcn.DeformConv2dFunction.apply(x, t, mask, weight, bias, 2)), offset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["dcn", "warp", "duf"])
+def test_double_backward_through_the_kernels_raises(cuda, op):
+    """The kernels' gradients carry no graph, so a create_graph=True
+    gradient through them raises (its second-order terms would be lost);
+    a first-order gradient of the same loss runs."""
+    fn, theta = _second_order_case(op, cuda)
+    t = theta.clone().requires_grad_()
+    (g,) = torch.autograd.grad((fn(t) ** 2).sum() + (t ** 3).sum(), t)
+    assert torch.isfinite(g).all()
+    t = theta.clone().requires_grad_()
+    loss = (fn(t) ** 2).sum() + (t ** 3).sum()
+    with pytest.raises(RuntimeError, match="double backward.*second-order"):
+        torch.autograd.grad(loss, t, create_graph=True)
