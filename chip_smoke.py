@@ -72,7 +72,30 @@ Phases; any failure raises and exits non-zero:
               helpers): `kernel_ms`, one launch's device time from a CUDA
               graph of 20 wrapper calls, `host_us`, one wrapper call's host
               time, and `kernel_roofline` = bound / kernel_ms; the profile
-              splits their device time per clip by call size.
+              splits their device time per clip by call size;
+  8. surface  the rest of the serving surface at full width, random weights
+              from the seed, through the entry points' own functions on
+              in-memory test sets (the card's machine has no image reader):
+              8a cli/test.py's path (create_model -> make_infer_fn /
+              make_seq_infer_fn -> evaluate_dataset) with
+              test_EDVR_M_REDS4.yml's EDVR-M on a 10-frame 180x320 clip,
+              fp32 / bf16, window-batched and eval.seq: K1 = 8 launches a
+              clip, no K2 / K3, each K1 call of a windowed run against the
+              plain DCN at its shape (40 and 10 frames of 180x320 and the
+              pyramid's levels; phase 2's tolerances), finite PSNR, window == seq (fp32), frames/s
+              (and in the forwards alone) and peak memory above what the
+              earlier phases hold; 8b the Vimeo90K-T protocol
+              (test_Vimeo90K.yml's 7-frame EDVR, 4 septuplets of 64x112,
+              centre frames scored): K1 = 4, each call against the plain
+              DCN as in 8a; 8c run_clip with an SFDN
+              estimator (test_DynaVSR_SFDN_Vid4.yml) on phase 4's clip,
+              fp32 / bf16: K1 = 28, K2 = K3 = 20 a clip; 8d DUF-16L with
+              bn_mode grad_stats and the sgd optimizer (lr 1) on phase 6's
+              clip: K6 = 7, K7 = 5, the loss falls, every running statistic
+              of the adapted copy moves by at least 1e-6 and none of the
+              meta model's moves; 8e EDVR-M with predeblur, HR_in (HR
+              720x1280 in) and w_TSA false, one window with the kernels
+              against the plain DCN (1e-3).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -92,18 +115,21 @@ import torch
 
 import torch.nn.functional as F
 
-from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
-from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, run_clip
+from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig, make_adapt_fn
+from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator, run_clip
 from dynavsr_tpu_torch.data.degradations import duf_downsample
 from dynavsr_tpu_torch.data.resize import imresize
-from dynavsr_tpu_torch.data.windows import all_windows
+from dynavsr_tpu_torch.data.windows import all_windows, index_generation
 from dynavsr_tpu_torch.device import resolve_device
-from dynavsr_tpu_torch.eval.harness import score_frames
+from dynavsr_tpu_torch.eval.convert_img import tensor2img
+from dynavsr_tpu_torch.eval.harness import evaluate_dataset, score_frames
+from dynavsr_tpu_torch.eval.metrics import calculate_psnr
 from dynavsr_tpu_torch.models import duf as duf_module
 from dynavsr_tpu_torch.models import edvr as edvr_module
 from dynavsr_tpu_torch.models import tof as tof_module
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import make_model_apply
+from dynavsr_tpu_torch.models.video_base_model import create_model
 from dynavsr_tpu_torch.ops import _build, dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
@@ -588,6 +614,9 @@ def phase_kernels() -> None:
 
 
 # ---------------------------------------------------------------- phase 4
+RES_BLOCKS = ("feature_extraction", "recon_trunk", "pre_deblur.RB_")
+
+
 def init_weights(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Seeded weights: U(+-1/sqrt(fan_in)) like torch's default conv init,
     scaled by 0.1 in residual blocks (the reference's initialize_weights).
@@ -600,20 +629,22 @@ def init_weights(model: torch.nn.Module, gen: torch.Generator) -> None:
             if name in bn:
                 continue
             fan_in = p[0].numel() if p.dim() > 1 else p.numel()
-            scale = 0.1 if ("feature_extraction" in name or "recon_trunk" in name) else 1.0
+            scale = 0.1 if any(k in name for k in RES_BLOCKS) else 1.0
             p.copy_((torch.rand(p.shape, generator=gen, device=p.device) * 2 - 1)
                     * scale / math.sqrt(fan_in))
 
 
-def synthetic_clip(gen: torch.Generator):
-    """A smooth 16-frame HR clip (moving sinusoids, values in (0, 1)) and
-    its LR = the port's MATLAB-bicubic imresize(HR, 1/4)."""
-    h, w = LR_H * SCALE, LR_W * SCALE
+def synthetic_clip(gen: torch.Generator, frames: int = CLIP_T, lr_h: int = LR_H,
+                   lr_w: int = LR_W):
+    """A smooth HR clip (moving sinusoids, values in (0, 1)) of `frames`
+    frames, 16 of 576x704 by default, and its LR = the port's
+    MATLAB-bicubic imresize(HR, 1/4)."""
+    h, w = lr_h * SCALE, lr_w * SCALE
     dev = "cuda"
     y = torch.arange(h, device=dev).view(1, h, 1, 1) / h
     x = torch.arange(w, device=dev).view(1, 1, w, 1) / w
-    t = torch.arange(CLIP_T, device=dev).view(CLIP_T, 1, 1, 1)
-    acc = torch.zeros(CLIP_T, h, w, 3, device=dev)
+    t = torch.arange(frames, device=dev).view(frames, 1, 1, 1)
+    acc = torch.zeros(frames, h, w, 3, device=dev)
     for _ in range(6):
         fy, fx, vy, vx, ph = (torch.rand(5, generator=gen, device=dev) * torch.tensor(
             [6.0, 6.0, 0.05, 0.05, 6.28], device=dev)).unbind()
@@ -629,7 +660,7 @@ def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
     init_weights(vsr32, gen)
     vsr16 = define_G({"network_G": {**EDVR_M, "dtype": "bfloat16"}})
     vsr16.load_state_dict(vsr32.state_dict())
-    est = build_mfdn({"nf": MFDN_NF}, SCALE, EDVR_M["nframes"])
+    est = build_estimator({"nf": MFDN_NF}, SCALE, EDVR_M["nframes"])
     init_weights(est, gen)
     cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
     nf = EDVR_M["nframes"]
@@ -763,7 +794,7 @@ def phase_bn_net(tag: str, net_g: dict, frames: int, kernels, expect_fn, swap, s
     init_weights(net32, gen)
     net16 = define_G({**opt, "network_G": {**net_g, "dtype": "bfloat16"}})
     net16.load_state_dict(net32.state_dict())
-    est = build_mfdn({"nf": MFDN_NF}, SCALE, frames)
+    est = build_estimator({"nf": MFDN_NF}, SCALE, frames)
     init_weights(est, gen)
     cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
     expect = expect_fn(cfg)
@@ -1005,6 +1036,319 @@ def profile_clip(run, mode: str, smi: str, names) -> dict:
                 top=[(n, us / 1e3) for n, us in top])
 
 
+# ---------------------------------------------------------------- phase 8
+# The serving surface at the test configs' widths. 8a: test_EDVR_M_REDS4.yml's
+# net on a REDS-shaped clip (10 frames of 180x320 LR, GT 720x1280); 8b:
+# test_Vimeo90K.yml's net (EDVR-M, 7 frames) on Vimeo90K-T-shaped septuplets;
+# 8e: the EDVR variants at EDVR-M width.
+EDVR_REDS4 = {**EDVR_M, "predeblur": False, "HR_in": False}
+REDS_T, REDS_H, REDS_W = 10, 180, 320
+EDVR_VIMEO = {**EDVR_M, "nframes": 7}
+VIMEO_N, VIMEO_H, VIMEO_W = 4, 64, 112
+EVAL_CHUNK = 8  # eval.infer_chunk's default
+EDVR_VARIANTS = {"predeblur": {"predeblur": True}, "HR_in": {"HR_in": True},
+                 "w_TSA false": {"w_TSA": False}}
+
+
+class MemoryTestSet:
+    """The test sets' surface that eval/harness.evaluate_dataset reads
+    (data/datasets.py: names, clip_frames, has_gt, __len__, __getitem__,
+    center_only) over clips held in memory: the card's machine has no
+    image reader. clips: {name: (lq (T, h, w, 3), gt or None)}."""
+
+    def __init__(self, clips: dict, n_frames: int, padding: str, center_only: bool = False):
+        self.clips, self.n_frames, self.padding = clips, n_frames, padding
+        self.center_only = center_only
+        self.names = list(clips)
+        self.items = [(c, i, len(lq)) for c, (lq, _) in clips.items()
+                      for i in ([len(lq) // 2] if center_only else range(len(lq)))]
+
+    def has_gt(self, clip: str) -> bool:
+        return self.clips[clip][1] is not None
+
+    def clip_frames(self, clip: str, gt: bool = False) -> np.ndarray:
+        return self.clips[clip][1 if gt else 0]
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, index: int) -> dict:
+        clip, i, t = self.items[index]
+        item = {"LQs": self.clips[clip][0][index_generation(i, t, self.n_frames, self.padding)],
+                "folder": clip}
+        if self.has_gt(clip):
+            item["GT"] = self.clips[clip][1][i]
+        return item
+
+
+def recorded(fn, outs: list, secs: list):
+    """fn, with each call's output and host seconds (it returns host arrays,
+    so the card is synchronised) appended to outs and secs."""
+    def call(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        return out
+    return call
+
+
+def eval_models(net_g: dict, gen: torch.Generator, extra: dict = None):
+    """create_model (cli/test.py's path) for `net_g` in fp32 and bf16 on the
+    card, with the same seeded weights."""
+    opt = {"scale": SCALE, "network_G": net_g, "path": {},
+           "eval": {"infer_chunk": EVAL_CHUNK, **(extra or {})}}
+    m32 = create_model(opt)
+    init_weights(m32.netG, gen)
+    m16 = create_model({**opt, "network_G": {**net_g, "dtype": "bfloat16"}})
+    m16.netG.load_state_dict(m32.netG.state_dict())
+    return {"fp32": m32, "bf16": m16}
+
+
+def check_only(counts: dict, expect: dict, what: str) -> None:
+    for name, n in counts.items():
+        check(n == expect.get(name, 0),
+              f"{what}: {name} launched {n} times, expected {expect.get(name, 0)}")
+
+
+def checked_dcn_calls(run, what: str) -> list:
+    """Run `run()` with each of EDVR's DCN calls (K1, the path's own launch)
+    held against the plain version on the same inputs, at against_plain's
+    tolerances for K1 relative to the plain result's largest value: fp32
+    1e-4; bf16 2^-7 against the fp32 plain version and 2^-8 against the
+    plain version with bf16 columns and weights. Raises on the first call
+    that disagrees; returns one row a call."""
+    rows = []
+    kernel_fn = edvr_module.deform_conv2d
+
+    def checking(x, offset, mask, weight, bias=None, deformable_groups=1):
+        out = kernel_fn(x, offset, mask, weight, bias, deformable_groups=deformable_groups)
+        args = [None if t is None else t.detach().float() for t in (x, offset, mask, weight, bias)]
+        wants = {"plain": (None, 1e-4 if x.dtype == torch.float32 else 2.0 ** -7)}
+        if x.dtype == torch.bfloat16:
+            wants["plain bf16 columns"] = (torch.bfloat16, 2.0 ** -8)
+        row = dict(call=len(rows), dims=list(x.shape), dtype=str(x.dtype).replace("torch.", ""))
+        for ref_name, (compute_dtype, tol) in wants.items():
+            with torch.no_grad():
+                ref = deform_conv2d_ref(*args, deformable_groups=deformable_groups,
+                                        compute_dtype=compute_dtype)
+                err = float((out.detach().float() - ref).abs().max())
+                lim = tol * float(ref.abs().max())
+            del ref
+            row[ref_name] = dict(max_abs_err=err, tol=lim)
+            check(err <= lim, f"{what}: K1 call {len(rows)} {tuple(x.shape)} {x.dtype} vs "
+                              f"{ref_name}: max|err| {err:.3e} > {lim:.3e}")
+        rows.append(row)
+        return out
+
+    edvr_module.deform_conv2d = checking
+    try:
+        run()
+    finally:
+        edvr_module.deform_conv2d = kernel_fn
+    worst = max(r["plain"]["max_abs_err"] / r["plain"]["tol"] for r in rows)
+    print(f"[surface] {what}: K1 vs plain DCN on each of its {len(rows)} calls, shapes "
+          f"{sorted({tuple(r['dims']) for r in rows})}: ok (largest max|err| / tol "
+          f"{worst:.3f})")
+    return rows
+
+
+def phase_surface(smi: str, gen: torch.Generator, lq: np.ndarray, duf_lq: np.ndarray) -> dict:
+    out = {}
+    # 8a: plain eval, REDS-shaped, through create_model -> make_infer_fn /
+    # make_seq_infer_fn -> evaluate_dataset. The timed runs serve (no GT in
+    # the set, so nothing is scored: RGB SSIM of 720p frames on the host
+    # would outweigh the card); PSNR is computed from the recorded SR.
+    reds_lq, reds_gt = synthetic_clip(gen, REDS_T, REDS_H, REDS_W)
+    serve_set = MemoryTestSet({"000": (reds_lq, None)}, EDVR_REDS4["nframes"], "new_info")
+    models = eval_models(EDVR_REDS4, gen)
+    expect = {"dcn_fwd": -(-REDS_T // EVAL_CHUNK) * 4}
+    srs = {}
+    for dt_name, model in models.items():
+        # Warm-up (cuDNN plans at these shapes), with every K1 call of the
+        # run held against the plain DCN.
+        out[f"8a {dt_name} K1 vs plain"] = checked_dcn_calls(
+            lambda: evaluate_dataset(model.make_infer_fn(), serve_set, n_frames=5,
+                                     padding="new_info", chunk=EVAL_CHUNK),
+            f"8a {dt_name}-windows")
+        for seq in (False, True):
+            mode = f"{dt_name}-{'seq' if seq else 'windows'}"
+            outs, secs = [], []
+            infer = recorded(model.make_infer_fn(), outs, secs)
+            seq_fn = recorded(model.make_seq_infer_fn(), outs, secs) if seq else None
+            reset_all_counts()
+            held = torch.cuda.memory_allocated()  # what earlier phases keep (recorded calls)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = evaluate_dataset(infer, serve_set, n_frames=5, padding="new_info",
+                                   chunk=EVAL_CHUNK, seq_fn=seq_fn)
+            wall = time.perf_counter() - t0
+            counts, peak = all_counts(), torch.cuda.max_memory_allocated() - held
+            check_only(counts, expect, f"8a {mode}")
+            sr = srs[mode] = np.concatenate(outs)
+            check(sr.shape == reds_gt.shape and bool(np.isfinite(sr).all()), f"8a {mode}: SR")
+            check(res["000"]["frames"] == REDS_T and "_avg" not in res, f"8a {mode}: {res}")
+            psnr = float(np.mean([calculate_psnr(tensor2img(a).astype(np.float64),
+                                                 tensor2img(b).astype(np.float64))
+                                  for a, b in zip(sr, reds_gt)]))
+            check(math.isfinite(psnr), f"8a {mode}: PSNR {psnr}")
+            out[f"8a {mode}"] = dict(fps=REDS_T / wall, infer_fps=REDS_T / sum(secs),
+                                     secs=wall, peak=peak, held=held, psnr=psnr, counts=counts)
+            print(f"[surface] 8a REDS4 EDVR-M {mode:13s} {REDS_T / wall:.3f} frames/s "
+                  f"({REDS_T / sum(secs):.3f} in the forwards) peak {peak / 2**30:.2f} GiB "
+                  f"above the {held / 2**30:.2f} held before  "
+                  f"PSNR-RGB {psnr:.3f}  launches {({k: v for k, v in counts.items() if v})}  "
+                  f"[{smi}]")
+    d32 = float(np.abs(srs["fp32-windows"] - srs["fp32-seq"]).max())
+    d16 = float(np.abs(srs["bf16-windows"] - srs["bf16-seq"]).max())
+    print(f"[surface] 8a max |windows - seq|: fp32 {d32:.3e} (limit 1e-4), bf16 {d16:.3e}")
+    check(d32 <= 1e-4, f"8a: fp32 window-batched and eval.seq differ by {d32}")
+    del models, srs
+    torch.cuda.empty_cache()
+
+    # 8b: the Vimeo90K-T protocol: one centre window a septuplet, scored.
+    v_lq, v_gt = synthetic_clip(gen, 7 * VIMEO_N, VIMEO_H, VIMEO_W)
+    vimeo = MemoryTestSet({f"0000{i + 1}_0001": (v_lq[7 * i: 7 * i + 7], v_gt[7 * i: 7 * i + 7])
+                           for i in range(VIMEO_N)}, 7, "new_info", center_only=True)
+    model = eval_models(EDVR_VIMEO, gen)["fp32"]
+    out["8b K1 vs plain"] = checked_dcn_calls(  # also the warm-up
+        lambda: evaluate_dataset(model.make_infer_fn(), vimeo, n_frames=7, padding="new_info",
+                                 chunk=EVAL_CHUNK), "8b")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    res = evaluate_dataset(model.make_infer_fn(), vimeo, n_frames=7, padding="new_info",
+                           chunk=EVAL_CHUNK, ycbcr=True)
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    check_only(counts, {"dcn_fwd": 4}, "8b")
+    scored = [k for k, r in res.items()
+              if k != "_avg" and math.isfinite(r.get("psnr_avg", math.nan))]
+    check(len(scored) == VIMEO_N and all(res[k]["frames"] == 1 for k in scored), f"8b: {res}")
+    out["8b"] = dict(items=len(scored), psnr_avg=res["_avg"]["psnr_avg"],
+                     ssim_avg=res["_avg"]["ssim_avg"], secs=wall, counts=counts)
+    print(f"[surface] 8b Vimeo90K-T EDVR 7 frames: {len(scored)} septuplets scored, PSNR-Y "
+          f"{res['_avg']['psnr_avg']:.3f} SSIM {res['_avg']['ssim_avg']:.4f} in {wall:.3f} s "
+          f"(scoring included)  launches {({k: v for k, v in counts.items() if v})}  [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+
+    # 8c: DynaVSR with SFDN (test_DynaVSR_SFDN_Vid4.yml) on phase 4's clip,
+    # the estimator in the net's dtype.
+    cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
+    expect = {"dcn_fwd": (cfg.n_steps + -(-CLIP_T // INFER_CHUNK)) * 4,
+              "dcn_bwd_data": cfg.n_steps * 4, "dcn_bwd_weight": cfg.n_steps * 4}
+    vsr32 = define_G({"network_G": EDVR_M})
+    init_weights(vsr32, gen)
+    est32 = build_estimator({"which_model_G": "SFDN", "nf": MFDN_NF}, SCALE, 5)
+    init_weights(est32, gen)
+    for dt_name, dtype in (("fp32", None), ("bf16", "bfloat16")):
+        vsr, est = vsr32, est32
+        if dtype:
+            vsr = define_G({"network_G": {**EDVR_M, "dtype": dtype}})
+            vsr.load_state_dict(vsr32.state_dict())
+            est = build_estimator({"which_model_G": "SFDN", "nf": MFDN_NF, "dtype": dtype},
+                                  SCALE, 5)
+            est.load_state_dict(est32.state_dict())
+        mode = f"{dt_name}-windows"
+        for timed in (False, True):  # warm-up, then the counted and timed clip
+            reset_all_counts()
+            t0 = time.perf_counter()
+            sr, res = run_clip(vsr, est, lq, None, cfg, seq=False, n_frames=5,
+                               padding="reflection", n_adapt=N_WINDOWS)
+            secs = time.perf_counter() - t0
+        counts, losses = all_counts(), res["adapt_losses"]
+        check(len(losses) == 5 and all(math.isfinite(v) for v in losses), f"8c {mode}: {losses}")
+        check(sr.shape == (CLIP_T, LR_H * SCALE, LR_W * SCALE, 3) and bool(np.isfinite(sr).all()),
+              f"8c {mode}: SR")
+        check_only(counts, expect, f"8c {mode}")
+        out[f"8c {mode}"] = dict(fps=CLIP_T / secs, secs=secs, losses=losses, counts=counts)
+        print(f"[surface] 8c DynaVSR EDVR-M + SFDN {mode:13s} {CLIP_T / secs:.3f} frames/s "
+              f"({secs:.3f} s/clip)  losses {[f'{v:.6f}' for v in losses]}  launches "
+              f"{({k: v for k, v in counts.items() if v})}  [{smi}]")
+    del vsr32, est32, vsr, est
+    torch.cuda.empty_cache()
+
+    # 8d: DUF-16L with bn_mode grad_stats and optimizer sgd on phase 6's clip.
+    # At lr 1 a running variance (~1, whose gradients here are ~1e-6..1e-4)
+    # moves by many ulps in 5 steps; at the configs' 1e-6 most would not
+    # move at all.
+    cfg = AdaptConfig(n_steps=5, lr=1.0, optimizer="sgd", infer_chunk=INFER_CHUNK,
+                      bn_mode="grad_stats")
+    net = define_G({"scale": SCALE, "network_G": DUF_G})
+    init_weights(net, gen)
+    est = build_estimator({"nf": MFDN_NF}, SCALE, DUF_FRAMES)
+    init_weights(est, gen)
+    stats0 = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+    for timed in (False, True):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        sr, res = run_clip(net, est, duf_lq, None, cfg, seq=False, n_frames=DUF_FRAMES,
+                           padding="new_info", n_adapt=N_WINDOWS)
+        secs = time.perf_counter() - t0
+    counts, losses = all_counts(), res["adapt_losses"]
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses), f"8d: {losses}")
+    check(losses[-1] < losses[0], f"8d: sgd did not lower the loss: {losses}")
+    check(bool(np.isfinite(sr).all()), "8d: SR")
+    check_only(counts, duf_launches_per_clip(cfg), "8d")
+    win = all_windows(CLIP_T, DUF_FRAMES, "new_info")[:N_WINDOWS]
+    adapt_windows = torch.as_tensor(duf_lq[win], device="cuda")
+    with torch.no_grad():
+        slr = est(adapt_windows)
+    adapted, _ = make_adapt_fn(cfg, make_model_apply("DUF", SCALE))(
+        net, slr, adapt_windows[:, DUF_FRAMES // 2])
+    # Every running statistic of the adapted copy moved: its largest change
+    # is at least 1e-6 (8 ulps of 1.0).
+    adapted_sd = adapted.state_dict()
+    moves = {k: float((adapted_sd[k] - v).abs().max()) for k, v in stats0.items()}
+    moved = {kind: sum(m >= 1e-6 for k, m in moves.items() if k.endswith(kind))
+             for kind in ("running_mean", "running_var")}
+    least = {kind: min(m for k, m in moves.items() if k.endswith(kind))
+             for kind in ("running_mean", "running_var")}
+    check(all(m >= 1e-6 for m in moves.values()),
+          f"8d: running statistics that moved by less than 1e-6: "
+          f"{ {k: m for k, m in moves.items() if m < 1e-6} }")
+    for k, v in net.state_dict().items():
+        if k in stats0:
+            check(torch.equal(v, stats0[k]), f"8d: the meta model's {k} moved")
+    out["8d"] = dict(fps=CLIP_T / secs, secs=secs, losses=losses, counts=counts,
+                     stats_moved=moved, least_move=least, stats=len(stats0), lr=cfg.lr)
+    print(f"[surface] 8d DUF-16L grad_stats + sgd (lr {cfg.lr}) fp32-windows "
+          f"{CLIP_T / secs:.3f} frames/s  losses {[f'{v:.6f}' for v in losses]}  launches "
+          f"{({k: v for k, v in counts.items() if v})}; statistics moved in the adapted "
+          f"copy {moved} of {len(stats0) // 2} each (least largest change {least}), none in "
+          f"the meta model  [{smi}]")
+    del net, est, adapted
+    torch.cuda.empty_cache()
+
+    # 8e: each EDVR variant, one window with the kernels and with the plain DCN.
+    for label, extra in EDVR_VARIANTS.items():
+        net = define_G({"network_G": {**EDVR_REDS4, **extra}})
+        init_weights(net, gen)
+        frames = reds_gt if extra.get("HR_in") else reds_lq
+        window = torch.as_tensor(frames[all_windows(REDS_T, 5, "new_info")[:1]], device="cuda")
+        kernel_fn = edvr_module.deform_conv2d
+        with torch.no_grad():
+            reset_all_counts()
+            sr_kernel = net(window)
+            counts = all_counts()
+            edvr_module.deform_conv2d = deform_conv2d_ref
+            try:
+                sr_plain = net(window)
+            finally:
+                edvr_module.deform_conv2d = kernel_fn
+        check_only(counts, {"dcn_fwd": 4}, f"8e {label}")
+        d = float((sr_kernel - sr_plain).abs().max())
+        out[f"8e {label}"] = dict(max_abs_diff=d, sr_shape=list(sr_kernel.shape),
+                                  sr_absmax=float(sr_plain.abs().max()))
+        print(f"[surface] 8e EDVR-M {label}: {tuple(window.shape)} -> {tuple(sr_kernel.shape)}, "
+              f"kernels vs plain DCN (fp32) max |SR diff| {d:.3e} (limit 1e-3; max |SR| "
+              f"{out[f'8e {label}']['sr_absmax']:.3f})")
+        check(d <= 1e-3, f"8e {label}: EDVR with the kernels differs from the plain DCN by {d}")
+        del net
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1032,6 +1376,10 @@ def main() -> None:
                                   warp_against_plain)
     rows += phase_recorded_timing("duf", duf_calls, duf_profiles, DUF_KERNELS,
                                   duf_against_plain)
+    t_surface = time.perf_counter()
+    surface = phase_surface(smi, gen, lq, duf_lq)
+    surface["seconds"] = time.perf_counter() - t_surface
+    print(f"[surface] phase 8 took {surface['seconds']:.1f} s")
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
     launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
@@ -1059,7 +1407,8 @@ def main() -> None:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
-                       "duf": duf_results, "seconds": time.perf_counter() - t_start}, f,
+                       "duf": duf_results, "surface": surface,
+                       "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -11,14 +11,22 @@ BatchNorm running statistics included) and a fresh optimizer: JAX's
 functional update cannot leak one clip's adaptation into the next, and an
 in-place torch loop would unless it copies.
 
-BatchNorm nets (TOF, DUF) adapt in `bn_mode` 'train_ema', the reference's
-train()-mode semantics: the adaptation forward runs the module in train
-mode (batch statistics; the running statistics move by the module's EMA,
-in place), gradients move the trainable parameters, and inference runs in
-eval mode on the EMA'd statistics. 'auto' resolves to it for nets with
-BatchNorm and to 'grad_stats' (plain gradient steps) for EDVR. The JAX
-package's 'grad_stats' on a BatchNorm net, where gradients move the
-running statistics too, is not ported (ROADMAP).
+BatchNorm nets (TOF, DUF) adapt in one of two `bn_mode`s:
+
+* 'train_ema', the reference's train()-mode semantics: the adaptation
+  forward runs the module in train mode (batch statistics; the running
+  statistics move by the module's EMA, in place), gradients move the
+  trainable parameters, and inference runs in eval mode on the EMA'd
+  statistics. 'auto' resolves to it for nets with BatchNorm.
+* 'grad_stats', the JAX package's variant: the adaptation forward runs in
+  eval mode, and the optimizer steps the running statistics together with
+  the weights (in JAX the adapted `params` is the whole variables dict).
+  The statistics stay buffers, so the state_dict keys do not change; they
+  require grad only while the copy adapts. On a net without BatchNorm
+  (EDVR, 'auto') this is plain gradient steps.
+
+The optimizer is optax's: 'adam' (betas 0.9 / 0.999, eps 1e-8) or 'sgd'
+(no momentum, no weight decay), at `lr`.
 """
 
 from __future__ import annotations
@@ -40,14 +48,20 @@ __all__ = ["AdaptConfig", "chunked_apply", "has_batch_norm", "resolve_bn_mode",
 class AdaptConfig:
     n_steps: int = 5
     lr: float = 1e-6
-    optimizer: str = "adam"  # the only one the test configs use
+    optimizer: str = "adam"  # 'adam' | 'sgd'
     reduction: str = "mean"
     infer_chunk: int = 0  # 0 = all windows in one batch
     bn_mode: str = "auto"  # 'auto' | 'train_ema' | 'grad_stats' (see the module note)
 
 
+def _running_stats(model: nn.Module) -> list:
+    """Every BatchNorm's running_mean and running_var buffers."""
+    return [buf for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for buf in (m.running_mean, m.running_var)]
+
+
 def has_batch_norm(model: nn.Module) -> bool:
-    return any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in model.modules())
+    return bool(_running_stats(model))
 
 
 def resolve_bn_mode(bn_mode: str, model: nn.Module) -> str:
@@ -69,9 +83,11 @@ def chunked_apply(apply: Callable, windows: torch.Tensor, chunk: int) -> torch.T
 
 
 def _make_opt(cfg: AdaptConfig, params) -> torch.optim.Optimizer:
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(f"adapt optimizer {cfg.optimizer!r} is not ported; use adam")
-    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)  # optax.adam
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)  # optax.adam
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr)  # optax.sgd
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
 def _train_mode_apply(model, x):
@@ -99,18 +115,14 @@ def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
 
     def adapt(meta_model, slr_windows, lr_centers):
         mode = resolve_bn_mode(cfg.bn_mode, meta_model)
-        if mode == "train_ema":
-            forward = mutable_apply_fn or _train_mode_apply
-        elif mode == "grad_stats":
-            if has_batch_norm(meta_model):
-                raise NotImplementedError(
-                    "bn_mode 'grad_stats' on a BatchNorm net is not ported yet (ROADMAP: "
-                    "grad_stats for BN nets); use 'train_ema' or 'auto'")
-            forward = apply
-        else:
+        if mode not in ("train_ema", "grad_stats"):
             raise ValueError(f"unknown bn_mode {cfg.bn_mode!r}")
         model = copy.deepcopy(meta_model)
-        opt = _make_opt(cfg, model.parameters())
+        forward = (mutable_apply_fn or _train_mode_apply) if mode == "train_ema" else apply
+        stats = _running_stats(model) if mode == "grad_stats" else []
+        for buf in stats:
+            buf.requires_grad_(True)
+        opt = _make_opt(cfg, [*model.parameters(), *stats])
         losses = []
         for _ in range(cfg.n_steps):
             opt.zero_grad(set_to_none=True)
@@ -119,6 +131,8 @@ def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
             loss.backward()
             opt.step()
             losses.append(loss.detach())
+        for buf in stats:
+            buf.requires_grad_(False)
         out = torch.stack(losses) if losses else torch.zeros(0, device=lr_centers.device)
         return model, out
 

@@ -1,6 +1,7 @@
 """DynaVSR adaptation eval (port of dynavsr_tpu/cli/test_dynavsr.py).
 
-Per clip: MFDN turns the adaptation windows into SLR windows, the VSR net
+Per clip: the estimator (`network_E`: MFDN, or SFDN frame by frame; fp32
+or bf16) turns the adaptation windows into SLR windows, the VSR net
 (EDVR, TOF or DUF_16L/28L/52L, `network_G.which_model_G`) takes k
 adaptation steps on (SLR window -> LR centre), then slides over the clip
 (window-batched, or for EDVR sequence mode with `adapt.seq: true`), and the
@@ -27,18 +28,19 @@ from dynavsr_tpu_torch.adapt.adaptation import (
     make_adapt_and_infer_seq,
     resolve_bn_mode,
 )
+from dynavsr_tpu_torch.data.loader import create_dataset
 from dynavsr_tpu_torch.data.windows import all_windows
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import score_frames
-from dynavsr_tpu_torch.models.downscaler import MFDN
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import (
     arch_mod,
     make_model_apply,
     make_mutable_model_apply,
 )
+from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 
-__all__ = ["run_clip", "build_mfdn", "adapt_config", "main"]
+__all__ = ["run_clip", "build_estimator", "adapt_config", "main"]
 
 logger = logging.getLogger("dynavsr_tpu_torch")
 
@@ -55,7 +57,7 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
     EDVR has: another net falls back to the window-batched path with a
     warning, as the JAX CLI does. The work runs on `device` (default: cuda;
     see device.resolve_device), where vsr and est must already be
-    (define_G / build_mfdn with the same device). Returns (sr (T, H, W, 3), scores),
+    (define_G / build_estimator with the same device). Returns (sr (T, H, W, 3), scores),
     with the per-step adaptation losses under scores['adapt_losses']."""
     device = resolve_device(device)
     for name, module in (("vsr", vsr), ("est", est)):
@@ -96,9 +98,10 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
     return sr, res
 
 
-def build_mfdn(opt_est, scale: int, nframes: int, device=None) -> MFDN:
-    """MFDN from a `network_E` config block, on `device` (default: cuda),
-    in eval mode."""
+def build_estimator(opt_est, scale: int, nframes: int, device=None) -> torch.nn.Module:
+    """The degradation estimator of a `network_E` config block (MFDN when
+    it names none; SFDN; `dtype` as for network_G), through define_G, on
+    `device` (default: cuda), in eval mode. MFDN takes `nframes` frames."""
     opt_est = {**opt_est, "which_model_G": opt_est.get("which_model_G") or "MFDN",
                "nframes": nframes}
     return define_G({"scale": scale, "network_G": opt_est}, device).eval()
@@ -116,22 +119,6 @@ def adapt_config(a) -> AdaptConfig:
     )
 
 
-def _load_pth(model: torch.nn.Module, path: Optional[str]) -> None:
-    if not path:
-        logger.warning("no checkpoint for %s: using its initial weights",
-                       type(model).__name__)
-        return
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: only reference .pth checkpoints load in the port "
-            "(ROADMAP: checkpoints)")
-    from dynavsr_tpu_torch.convert.from_jax import strip_module_prefix
-
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd.get("state_dict", sd)
-    model.load_state_dict(strip_module_prefix(sd), strict=True)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", required=True)
@@ -140,7 +127,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from dynavsr_tpu_torch.config.options import dict2str, parse
-    from dynavsr_tpu_torch.data.datasets import VideoTestDataset
 
     device = resolve_device(args.device)
     opt = parse(args.opt)
@@ -155,20 +141,20 @@ def main(argv=None):
     scale = opt.get("scale", 4)
     n_frames = (opt["network_G"] or {}).get("nframes", 5)
     vsr = define_G(opt, device)
-    est = build_mfdn(opt.get("network_E") or {}, scale, n_frames, device)
-    _load_pth(vsr, opt["path"].get("pretrain_model_G"))
-    _load_pth(est, opt["path"].get("pretrain_model_E"))
+    est = build_estimator(opt.get("network_E") or {}, scale, n_frames, device)
+    strict = opt["path"].get("strict_load", True) is not False
+    load_pretrained(vsr, opt["path"].get("pretrain_model_G"), strict)
+    load_pretrained(est, opt["path"].get("pretrain_model_E"), strict)
     cfg = adapt_config(a)
     ev = opt.get("eval") or {}
 
     results = {}
     for _name, dataset_opt in (opt["datasets"] or {}).items():
-        test_set = VideoTestDataset(dataset_opt)
+        test_set = create_dataset(dataset_opt)
         for clip in test_set.names:
             lq = test_set.clip_frames(clip)
             # A clip without GT frames is super-resolved but not scored.
-            has_gt = test_set.gt_index is not None and clip in test_set.gt_index.clips
-            gt = test_set.clip_frames(clip, gt=True) if has_gt else None
+            gt = test_set.clip_frames(clip, gt=True) if test_set.has_gt(clip) else None
             _, res = run_clip(
                 vsr, est, lq, gt, cfg, seq=bool(a.get("seq")), n_frames=n_frames,
                 padding=dataset_opt.get("padding") or "reflection",

@@ -10,12 +10,15 @@ mechanical:
   pcd_align/L1_dcnpack/weight (HWIO)       -> pcd_align.L1_dcnpack.weight (OIHW)
   feature_extraction/blocks/block/conv1/kernel, stacked on axis 0
                                            -> feature_extraction.{i}.conv1.weight
+  pre_deblur/RB_L1_1/conv1/kernel          -> pre_deblur.RB_L1_1.conv1.weight
+  tsa_fusion/kernel (EDVR w_TSA false)     -> tsa_fusion.weight (a 1x1 conv)
+  body0/kernel, down/kernel (MFDN, SFDN)   -> body0.weight, down.weight
   spynet/block0/bn0/scale                  -> spynet.block0.bn0.weight
   batch_stats: spynet/block0/bn0/mean, var -> spynet.block0.bn0.running_mean,
                                               running_var (+ num_batches_tracked 0)
 
 A reference `.pth` needs no conversion: strip the `module.` prefix and
-`load_state_dict` it.
+`load_state_dict` it (train/checkpoint.load_pretrained).
 """
 
 from __future__ import annotations

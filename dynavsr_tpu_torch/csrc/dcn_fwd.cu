@@ -182,8 +182,9 @@ static int launch(const void* x, void* xcl, const void* offset, const void* mask
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  to_channels_last<T><<<dim3((hw + 31) / 32, (C + 31) / 32, B), dim3(32, 8), 0, stream>>>(
-      (const T*)x, (T*)xcl, C, hw);
+  if (x != xcl)  // x == xcl: the caller's x is channels-last already
+    to_channels_last<T><<<dim3((hw + 31) / 32, (C + 31) / 32, B), dim3(32, 8), 0, stream>>>(
+        (const T*)x, (T*)xcl, C, hw);
   const int tpf = (hw + kP - 1) / kP, ntiles = B * tpf, gy = (Cout + kN - 1) / kN;
   const int gx = std::min(ntiles, std::max(1, per_sm * nsm / gy));
   // Offsets and masks load 4 pixels at a time where every plane starts aligned.

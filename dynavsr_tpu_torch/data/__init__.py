@@ -1,2 +1,2 @@
 """Host-side data: sliding windows, colour, bicubic resize, DUF's blur-matched
-downsample, frame IO, test datasets."""
+downsample, frame IO, the test sets and their factory."""

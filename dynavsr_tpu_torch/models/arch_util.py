@@ -62,7 +62,9 @@ class _FlaxBatchNorm:
     take var * n / (n - 1)). `momentum` is torch's, 1 - flax's: TOF's
     BatchNorms set flax momentum 0.9 (torch 0.1, the default here), DUF's
     keep flax's default 0.99 (torch 0.01). The output has the input's
-    dtype."""
+    dtype. In eval mode, running statistics that require grad (adaptation
+    in bn_mode 'grad_stats') get gradients: the formula is written out
+    there, since the fused op is not differentiable in them."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -70,8 +72,16 @@ class _FlaxBatchNorm:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if not self.training:
-            y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight,
-                             self.bias, False, 0.0, self.eps)
+            if self.running_mean.requires_grad or self.running_var.requires_grad:
+                # Adaptation in bn_mode 'grad_stats' differentiates in the
+                # running statistics, which F.batch_norm refuses; this is
+                # flax's eval formula, (x - mean) * (rsqrt(var + eps) * w) + b.
+                shape = (1, -1) + (1,) * (x.dim() - 2)
+                mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+                y = (x32 - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            else:
+                y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight,
+                                 self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x32, dim=(0, *range(2, x.dim())), unbiased=False)

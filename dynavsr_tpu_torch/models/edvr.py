@@ -8,6 +8,14 @@ Internally NCHW; `forward` and `forward_seq` keep the JAX package's NHWC
 layout at their boundary: windows (B, N, H, W, 3) in, SR (B, 4H, 4W, 3)
 fp32 out. With `dtype=torch.bfloat16` every conv and the DCN run in bf16
 while the parameters stay fp32.
+
+The reference's variants are all here: `predeblur` puts the pre-deblur
+residual pyramid (and a 1x1 conv) in front of the feature trunk; `hr_in`
+takes HR frames, brings them to a quarter of their size with two stride-2
+convs (`conv_first_1/2/3`, or the pre-deblur's own), and adds the SR to
+the centre HR frame itself instead of its x4 bilinear upsampling;
+`w_TSA=False` fuses the aligned frames with one 1x1 conv (`tsa_fusion`)
+over their frame-major concat instead of TSA.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from dynavsr_tpu_torch.models.arch_util import (
+    ResidualBlockNoBN,
     ResTrunk,
     avg_pool_3x3_s2,
     conv,
@@ -28,7 +37,7 @@ from dynavsr_tpu_torch.models.arch_util import (
 from dynavsr_tpu_torch.ops.dcn import deform_conv2d
 from dynavsr_tpu_torch.ops.pixelshuffle import pixel_shuffle
 
-__all__ = ["EDVR", "PCDAlign", "TSAFusion", "DCNSep"]
+__all__ = ["EDVR", "PCDAlign", "TSAFusion", "DCNSep", "PredeblurResNetPyramid"]
 
 _TAPS = 9  # 3x3 kernel
 
@@ -154,6 +163,38 @@ class TSAFusion(nn.Module):
         return fused * torch.sigmoid(att) * 2.0 + att_add
 
 
+class PredeblurResNetPyramid(nn.Module):
+    """EDVR's pre-deblur module: a three-level pyramid of residual blocks
+    over the (HR, with `hr_in`) input, fused back at L1 resolution."""
+
+    def __init__(self, nf: int = 64, hr_in: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.hr_in = hr_in
+        if hr_in:
+            self.conv_first_1 = conv(3, nf, dtype=dtype)
+            self.conv_first_2 = conv(nf, nf, stride=2, dtype=dtype)
+            self.conv_first_3 = conv(nf, nf, stride=2, dtype=dtype)
+        else:
+            self.conv_first = conv(3, nf, dtype=dtype)
+        self.deblur_L2_conv = conv(nf, nf, stride=2, dtype=dtype)
+        self.deblur_L3_conv = conv(nf, nf, stride=2, dtype=dtype)
+        for name in ("RB_L3_1", "RB_L2_1", "RB_L2_2", *(f"RB_L1_{i}" for i in range(1, 6))):
+            setattr(self, name, ResidualBlockNoBN(nf, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.hr_in:
+            l1 = lrelu(self.conv_first_1(x))
+            l1 = lrelu(self.conv_first_3(lrelu(self.conv_first_2(l1))))
+        else:
+            l1 = lrelu(self.conv_first(x))
+        l2 = lrelu(self.deblur_L2_conv(l1))
+        l3 = lrelu(self.deblur_L3_conv(l2))
+        l3 = interpolate_bilinear(self.RB_L3_1(l3), 2)
+        l2 = interpolate_bilinear(self.RB_L2_2(self.RB_L2_1(l2) + l3), 2)
+        out = self.RB_L1_2(self.RB_L1_1(l1)) + l2
+        return self.RB_L1_5(self.RB_L1_4(self.RB_L1_3(out)))
+
+
 class EDVR(nn.Module):
     """EDVR x4. EDVR-M: nf=64, front_RBs=5, back_RBs=10.
 
@@ -171,20 +212,28 @@ class EDVR(nn.Module):
                  predeblur: bool = False, hr_in: bool = False, w_TSA: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if predeblur or hr_in or not w_TSA:
-            raise NotImplementedError(
-                "EDVR predeblur / HR_in / w_TSA false are not ported yet "
-                "(ROADMAP: EDVR predeblur, HR_in and w_TSA false)")
         self.center = center
-        self.conv_first = conv(3, nf, dtype=dtype)
+        self.predeblur, self.hr_in, self.w_TSA = predeblur, hr_in, w_TSA
+        if predeblur:
+            self.pre_deblur = PredeblurResNetPyramid(nf, hr_in, dtype)
+            self.conv_1x1 = conv(nf, nf, 1, dtype=dtype)
+        elif hr_in:
+            self.conv_first_1 = conv(3, nf, dtype=dtype)
+            self.conv_first_2 = conv(nf, nf, stride=2, dtype=dtype)
+            self.conv_first_3 = conv(nf, nf, stride=2, dtype=dtype)
+        else:
+            self.conv_first = conv(3, nf, dtype=dtype)
         self.feature_extraction = ResTrunk(nf, front_RBs, dtype)
         self.fea_L2_conv1 = conv(nf, nf, stride=2, dtype=dtype)
         self.fea_L2_conv2 = conv(nf, nf, dtype=dtype)
         self.fea_L3_conv1 = conv(nf, nf, stride=2, dtype=dtype)
         self.fea_L3_conv2 = conv(nf, nf, dtype=dtype)
         self.pcd_align = PCDAlign(nf, groups, dtype)
-        self.tsa_fusion = TSAFusion(
-            nf, nframes, nframes // 2 if center is None else center, dtype)
+        if w_TSA:
+            self.tsa_fusion = TSAFusion(
+                nf, nframes, nframes // 2 if center is None else center, dtype)
+        else:
+            self.tsa_fusion = conv(nframes * nf, nf, 1, dtype=dtype)
         self.recon_trunk = ResTrunk(nf, back_RBs, dtype)
         self.upconv1 = conv(nf, nf * 4, dtype=dtype)
         self.upconv2 = conv(nf, 64 * 4, dtype=dtype)
@@ -192,9 +241,17 @@ class EDVR(nn.Module):
         self.conv_last = conv(64, 3, dtype=dtype)
 
     def extract_pyramid(self, frames: torch.Tensor) -> List[torch.Tensor]:
-        """frames (T, H, W, 3) NHWC -> [l1, l2, l3], NCHW at (T, nf, H, W),
-        (T, nf, H/2, W/2), (T, nf, H/4, W/4)."""
-        l1 = lrelu(self.conv_first(frames.permute(0, 3, 1, 2)))
+        """frames (T, H, W, 3) NHWC -> [l1, l2, l3], NCHW at (T, nf, h, w),
+        (T, nf, h/2, w/2), (T, nf, h/4, w/4); h, w = H, W, or H/4, W/4 with
+        `hr_in`."""
+        x = frames.permute(0, 3, 1, 2)
+        if self.predeblur:
+            l1 = self.conv_1x1(self.pre_deblur(x))
+        elif self.hr_in:
+            l1 = lrelu(self.conv_first_1(x))
+            l1 = lrelu(self.conv_first_3(lrelu(self.conv_first_2(l1))))
+        else:
+            l1 = lrelu(self.conv_first(x))
         l1 = self.feature_extraction(l1)
         l2 = lrelu(self.fea_L2_conv2(lrelu(self.fea_L2_conv1(l1))))
         l3 = lrelu(self.fea_L3_conv2(lrelu(self.fea_L3_conv1(l2))))
@@ -203,18 +260,25 @@ class EDVR(nn.Module):
     def fuse_pyramid(self, l1: torch.Tensor, l2: torch.Tensor, l3: torch.Tensor,
                      x_center: torch.Tensor) -> torch.Tensor:
         """Per-window pyramids (B, N, nf, h[/2, /4], w[/2, /4]) and the raw
-        centre frames (B, H, W, 3) -> SR (B, 4H, 4W, 3) fp32."""
+        centre frames (B, H, W, 3) -> SR (B, 4h, 4w, 3) fp32 (= (B, H, W, 3)
+        with `hr_in`)."""
         b, n, _, h, w = l1.shape
         center = n // 2 if self.center is None else self.center
         # Neighbours folded into the batch (b-major), PCD run once.
         nbr = [f.reshape(b * n, *f.shape[2:]) for f in (l1, l2, l3)]
         ref = [f[:, center].repeat_interleave(n, dim=0) for f in (l1, l2, l3)]
         aligned = self.pcd_align(nbr, ref).reshape(b, n, -1, h, w)
-        out = self.recon_trunk(self.tsa_fusion(aligned))
+        if self.w_TSA:
+            fea = self.tsa_fusion(aligned)
+        else:  # frame-major channel concat, like the reference's view
+            fea = self.tsa_fusion(aligned.reshape(b, -1, h, w))
+        out = self.recon_trunk(fea)
         out = lrelu(pixel_shuffle(self.upconv1(out), 2))
         out = lrelu(pixel_shuffle(self.upconv2(out), 2))
         out = self.conv_last(lrelu(self.HRconv(out)))
-        base = interpolate_bilinear(x_center.permute(0, 3, 1, 2), 4)
+        base = x_center.permute(0, 3, 1, 2)
+        if not self.hr_in:
+            base = interpolate_bilinear(base, 4)
         return (out + base).to(torch.float32).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -226,7 +290,8 @@ class EDVR(nn.Module):
 
     def forward_seq(self, frames: torch.Tensor, win_idx: torch.Tensor) -> torch.Tensor:
         """frames (T, H, W, 3); win_idx (F, N) window indices
-        (data/windows.all_windows) -> SR (F, 4H, 4W, 3)."""
+        (data/windows.all_windows) -> SR (F, 4H, 4W, 3) (HR frames in and
+        (F, H, W, 3) out with `hr_in`)."""
         l1, l2, l3 = self.extract_pyramid(frames)
         center = win_idx.shape[1] // 2 if self.center is None else self.center
         return self.fuse_pyramid(l1[win_idx], l2[win_idx], l3[win_idx],

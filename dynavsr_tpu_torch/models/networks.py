@@ -1,6 +1,7 @@
 """Network factory (port of dynavsr_tpu/models/networks.py:define_G).
 
-String dispatch on `network_G.which_model_G`, so the reference YAML
+String dispatch on `network_G.which_model_G` (EDVR, TOF, DUF_16L/28L/52L,
+and the downscalers MFDN and SFDN), so the reference YAML
 configs drive the port as they drive the JAX package. The module comes
 back on `resolve_device(device)`: the card unless the caller asks for the
 CPU.
@@ -20,7 +21,7 @@ from typing import Any, Mapping, Optional
 import torch
 
 from dynavsr_tpu_torch.device import resolve_device
-from dynavsr_tpu_torch.models.downscaler import MFDN
+from dynavsr_tpu_torch.models.downscaler import MFDN, SFDN
 from dynavsr_tpu_torch.models.duf import DUF
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.models.tof import TOFlow
@@ -60,13 +61,12 @@ def define_G(opt: Mapping[str, Any], device=None) -> torch.nn.Module:
         net = TOFlow(dtype=dt, pre_upscale=bool(opt_net.get("pre_upscale")), scale=scale,
                      nframes=opt_net.get("nframes", 7))
     elif which == "MFDN":
-        if dt is not None:
-            raise NotImplementedError("a bf16 MFDN is not ported yet")
-        net = MFDN(scale=scale, nf=opt_net.get("nf", 64), nframes=opt_net.get("nframes", 5))
+        net = MFDN(scale=scale, nf=opt_net.get("nf", 64), nframes=opt_net.get("nframes", 5),
+                   dtype=dt)
+    elif which == "SFDN":
+        net = SFDN(scale=scale, nf=opt_net.get("nf", 64), dtype=dt)
     elif which in _DUF_DENSE1:
         net = DUF(scale=scale, dense1_layers=_DUF_DENSE1[which], dtype=dt)
-    elif which == "SFDN":
-        raise NotImplementedError("SFDN is not ported yet (ROADMAP A.1)")
     else:
         raise NotImplementedError(f"Generator model [{which}] not recognized")
     return net.to(device)

@@ -44,7 +44,7 @@ def _check(x, offset, mask, gd: int, cout: int, weight=None, bias=None, grad_out
            x_channels_last: bool = False):
     """Raise on anything the kernels do not take. x is NCHW-contiguous, or
     with `x_channels_last` contiguous in torch.channels_last (the layout
-    K2 and K3 read)."""
+    K1 gathers from and K2 and K3 read)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
     if not x.is_cuda:
@@ -78,12 +78,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _fwd(x, offset, mask, weight, bias, deformable_groups: int):
     """K1 on CUDA tensors: (out, x_cl), x_cl being x in torch.channels_last,
-    the copy K1's launcher makes for its gather and K2/K3 read again."""
+    which K1 gathers from and K2/K3 read again. An NCHW x is copied to x_cl
+    by K1's prologue; a channels-last x (as a conv may hand it over) is
+    x_cl itself, and the prologue is skipped."""
     global fwd_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
-    _check(x, offset, mask, deformable_groups, cout, weight=weight, bias=bias)
-    x_cl = torch.empty_like(x, memory_format=torch.channels_last)
+    given_cl = not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last)
+    _check(x, offset, mask, deformable_groups, cout, weight=weight, bias=bias,
+           x_channels_last=given_cl)
+    x_cl = x if given_cl else torch.empty_like(x, memory_format=torch.channels_last)
     if x.dtype == torch.bfloat16:
         wt = weight.permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
     else:
@@ -99,9 +103,9 @@ def _fwd(x, offset, mask, weight, bias, deformable_groups: int):
 
 
 def dcn_fwd(x, offset, mask, weight, bias, deformable_groups: int) -> torch.Tensor:
-    """K1: the forward on CUDA tensors (3x3, stride 1, padding 1). The
-    kernel samples a channels-last copy of x (its launcher writes it
-    first), and takes the weight as (9, Cout, C) in bf16 (the tensor-core B
+    """K1: the forward on CUDA tensors (3x3, stride 1, padding 1). x is
+    NCHW or channels-last; the kernel samples a channels-last x (for an
+    NCHW x its launcher writes that copy first), and takes the weight as (9, Cout, C) in bf16 (the tensor-core B
     operand) or (9, C, Cout) in fp32."""
     return _fwd(x, offset, mask, weight, bias, deformable_groups)[0]
 

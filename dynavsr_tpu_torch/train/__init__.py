@@ -1,1 +1,1 @@
-"""Training pieces the adaptation loop needs (the loss)."""
+"""Training pieces the serving path needs: the loss and network checkpoints."""

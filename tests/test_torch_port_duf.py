@@ -33,7 +33,6 @@ from dynavsr_tpu_torch.adapt.adaptation import (
     make_adapt_fn,
     resolve_bn_mode,
 )
-from dynavsr_tpu_torch.cli.test_dynavsr import _load_pth
 from dynavsr_tpu_torch.convert.from_jax import jax_params_to_state_dict
 from dynavsr_tpu_torch.data.degradations import duf_downsample
 from dynavsr_tpu_torch.models.duf import DUF
@@ -41,6 +40,7 @@ from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import make_model_apply, make_mutable_model_apply
 from dynavsr_tpu_torch.ops import duf_filter
 from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
+from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 
 T, H, W, LAYERS = 7, 8, 10, 1
 
@@ -276,8 +276,8 @@ def test_train_ema_adaptation_matches_jax(variables):
 # ------------------------------------------------------------ checkpoints, data, CLI
 def test_reference_pth_loads_strictly_and_matches_the_torch_replica(tmp_path):
     """A reference-layout DUF-16L state_dict (tests/torch_replicas.py, with
-    nn.BatchNorm3d buffers) loads strictly through the CLI's _load_pth, and
-    the eval forwards agree (the replica filters with an einsum); 1e-4."""
+    nn.BatchNorm3d buffers) loads strictly through the entry points'
+    load_pretrained, and the eval forwards agree (the replica filters with an einsum); 1e-4."""
     torch.manual_seed(0)
     ref = tr.DUF(scale=4, dense1_layers=3).eval()
     with torch.no_grad():
@@ -289,7 +289,7 @@ def test_reference_pth_loads_strictly_and_matches_the_torch_replica(tmp_path):
     path = tmp_path / "DUF_16L.pth"
     torch.save({"module." + k: v for k, v in ref.state_dict().items()}, path)
     ours = define_G({"network_G": {"which_model_G": "DUF_16L"}}, device="cpu")
-    _load_pth(ours, str(path))
+    load_pretrained(ours, str(path))
     x = _frames((1, T, 6, 7, 3), 11)
     with torch.no_grad():
         want = ref(torch.from_numpy(x).permute(0, 1, 4, 2, 3)).permute(0, 2, 3, 1).numpy()
@@ -327,6 +327,7 @@ name: tiny_duf
 scale: 4
 datasets:
   test:
+    mode: video_test
     dataroot_GT: {tmp_path / 'GT'}
     dataroot_LQ: {tmp_path / 'LQ'}
     padding: new_info

@@ -161,6 +161,30 @@ def test_autograd_goes_through_the_kernels(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_channels_last_x_gives_the_nchw_result(cuda, dtype):
+    """A channels-last x (a conv may hand one over) is the layout K1
+    gathers from, so its launcher skips the copy: the output equals that of
+    the same x in NCHW bit for bit, and the gradients agree up to the order
+    of K2/K3's atomics (fp32 1e-4; bf16 one rounding, 2^-8)."""
+    x, offset, mask, weight, bias, cot = [
+        t.to(dtype) for t in _inputs(2, 64, 64, 13, 21, 8, cuda, seed=4)]
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -8
+    runs = []
+    for xin in (x, x.contiguous(memory_format=torch.channels_last)):
+        params = [t.clone().requires_grad_() for t in (xin, offset, mask, weight, bias)]
+        dcn.reset_launch_counts()
+        out = dcn.deform_conv2d(*params, deformable_groups=8)
+        out.backward(cot)
+        assert dcn.launch_counts() == {"dcn_fwd": 1, "dcn_bwd_data": 1, "dcn_bwd_weight": 1}
+        runs.append((out.detach(), [t.grad for t in params]))
+    assert runs[1][0].is_contiguous()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for got, want in zip(runs[1][1], runs[0][1]):
+        _close(got, want, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_samples_all_outside_give_exact_zeros(cuda, dtype):
     """Every tap lands outside the frame: no column, no scatter, so grad x
     and grad weight are exactly 0 (and so are the offset and mask

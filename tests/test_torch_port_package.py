@@ -30,7 +30,9 @@ def _submodules():
 
 def test_package_imports_no_jax():
     mods = _submodules()
-    assert "dynavsr_tpu_torch.ops.dcn" in mods and "dynavsr_tpu_torch.cli.test_dynavsr" in mods
+    assert {"dynavsr_tpu_torch.ops.dcn", "dynavsr_tpu_torch.cli.test_dynavsr",
+            "dynavsr_tpu_torch.cli.test", "dynavsr_tpu_torch.models.video_base_model",
+            "dynavsr_tpu_torch.data.loader", "dynavsr_tpu_torch.train.checkpoint"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -73,8 +75,10 @@ TINY_G = {"which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RB
 def test_entry_points_refuse_the_cpu_unless_asked():
     from dynavsr_tpu_torch import resolve_device
     from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
-    from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, main, run_clip
+    from dynavsr_tpu_torch.cli import test as test_cli
+    from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator, main, run_clip
     from dynavsr_tpu_torch.models.networks import define_G
+    from dynavsr_tpu_torch.models.video_base_model import VideoBaseModel
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -83,11 +87,17 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["-opt", str(ROOT / "configs/test/test_DynaVSR_Vid4.yml")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        define_G({"network_G": TINY_G})
+        test_cli.main(["-opt", str(ROOT / "configs/test/test_EDVR_M_REDS4.yml")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_mfdn({"nf": 8}, 4, 3)
+        VideoBaseModel({"network_G": TINY_G})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        define_G({"network_G": TINY_G})
+    for which in ("MFDN", "SFDN"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_estimator({"which_model_G": which, "nf": 8}, 4, 3)
+    assert VideoBaseModel({"network_G": TINY_G}, device="cpu").netG.arch == "EDVR"
     vsr = define_G({"network_G": TINY_G}, device="cpu")
-    est = build_mfdn({"nf": 8}, 4, 3, device="cpu")
+    est = build_estimator({"nf": 8}, 4, 3, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_clip(vsr, est, np.zeros((3, 8, 8, 3), np.float32), None, AdaptConfig(n_steps=1),
                  seq=False, n_frames=3, padding="reflection", n_adapt=1)
@@ -98,11 +108,11 @@ def test_run_clip_refuses_modules_off_its_device():
     """The models are built on the CPU; a clip asked to run elsewhere raises
     rather than moving them or running where they are."""
     from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig
-    from dynavsr_tpu_torch.cli.test_dynavsr import build_mfdn, run_clip
+    from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator, run_clip
     from dynavsr_tpu_torch.models.networks import define_G
 
     vsr = define_G({"network_G": TINY_G}, device="cpu")
-    est = build_mfdn({"nf": 8}, 4, 3, device="cpu")
+    est = build_estimator({"nf": 8}, 4, 3, device="cpu")
     assert {p.device.type for p in [*vsr.parameters(), *est.parameters()]} == {"cpu"}
     assert not est.training
     with pytest.raises(ValueError, match="vsr is on cpu"):
@@ -131,6 +141,7 @@ name: tiny
 scale: 4
 datasets:
   test:
+    mode: video_test
     dataroot_GT: {tmp_path / 'GT'}
     dataroot_LQ: {tmp_path / 'LQ'}
     padding: reflection
