@@ -95,7 +95,26 @@ Phases; any failure raises and exits non-zero:
               of the adapted copy moves by at least 1e-6 and none of the
               meta model's moves; 8e EDVR-M with predeblur, HR_in (HR
               720x1280 in) and w_TSA false, one window with the kernels
-              against the plain DCN (1e-3).
+              against the plain DCN (1e-3);
+  9. train    supervised training through cli/train.train at EDVR-M's full
+              width on REDS-shaped raw-byte LMDBs written here (4 clips
+              outside REDS4 x 16 frames, GT 720x1280, LQ 180x320 from the
+              port's imresize; 64 items, 2 batches of 32 an epoch): 9a
+              train_EDVR_M_REDS.yml's fields (fp32, Gd 8), 8 updates; 9b
+              train_EDVR_M_TPU.yml's (bf16, Gd 2, restart weights 1 / .5 /
+              .5 / .5), 6 updates; each then resumed from the state saved
+              at update 4. Checks: every l_pix finite and the last two
+              below the first two, the offset metric 0 at update 1, K1 =
+              K2 = K3 = 4 launches each update and no K4-K7, the resumed
+              net and Adam moments bitwise the saved files', the resumed
+              run's batch 5 bitwise the uninterrupted run's; one update of
+              a trained copy with every K1-K3 call held against the plain
+              DCN at phase 3's tolerances (and timed at each shape: 160
+              rows of 64x64, 32x32, 16x16). Reports s/update (updates 3-N,
+              the card synchronised around each), samples/s, the loader's
+              wait, peak memory, and under torch.profiler over 2 updates
+              the device's busy / idle share, top operations and K1-K3's
+              device time an update, as a `[train] {json}` line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1349,6 +1368,271 @@ def phase_surface(smi: str, gen: torch.Generator, lq: np.ndarray, duf_lq: np.nda
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+# Supervised training through cli/train.train at EDVR-M's full width, on
+# REDS-shaped data: 4 clips outside REDS4 of 16 frames, GT 720x1280 and LQ
+# 180x320 (REDS' frame sizes), written as raw-byte LMDBs. 9a takes
+# configs/train/train_EDVR_M_REDS.yml's fields (fp32, Gd 8), 9b
+# train_EDVR_M_TPU.yml's (bf16, Gd 2). Each trains, then resumes from the
+# state saved at TRAIN_SAVE to the same iteration.
+TRAIN_CLIPS, TRAIN_T, TRAIN_SAVE = ("001", "002", "003", "004"), 16, 4
+TRAIN_RUNS = {"9a": dict(groups=8, dtype=None, restart_weights=[1, 1, 1], niter=8,
+                         name="EDVR_M_REDS"),
+              "9b": dict(groups=2, dtype="bf16", restart_weights=[1, 0.5, 0.5, 0.5], niter=6,
+                         name="EDVR_M_TPU_REDS")}
+
+
+def write_train_lmdbs(gen: torch.Generator, root: str) -> tuple:
+    """The GT and LQ LMDBs: key '<clip>_<frame:08d>', raw BGR uint8 bytes
+    and a '<key>.meta' entry 'HxWxC' (the card's machine has no image
+    codec). Frames: phase 4's smooth-clip generator at REDS' size; LQ =
+    the port's MATLAB-bicubic imresize(GT, 1/4), each quantised to uint8."""
+    from dynavsr_tpu_torch.data.lmdb_native import LmdbWriter
+
+    paths = (f"{root}/train_sharp.lmdb", f"{root}/train_sharp_bicubic.lmdb")
+    with LmdbWriter(paths[0]) as gt_w, LmdbWriter(paths[1]) as lq_w:
+        for clip in TRAIN_CLIPS:
+            lq, hr = synthetic_clip(gen, TRAIN_T, REDS_H, REDS_W)
+            for w, frames in ((gt_w, hr), (lq_w, lq)):
+                u8 = np.clip(np.round(frames * 255.0), 0, 255).astype(np.uint8)[..., ::-1]
+                for i, f in enumerate(u8):
+                    key = f"{clip}_{i:08d}".encode()
+                    w.put(key, np.ascontiguousarray(f).tobytes())
+                    w.put(key + b".meta", "x".join(map(str, f.shape)).encode())
+    return paths
+
+
+def train_opt(run: dict, gt: str, lq: str, root: str, resume: str = None) -> dict:
+    """The training config as cli/train.py derives it from the YAML (no
+    YAML parser on the card's machine)."""
+    from dynavsr_tpu_torch.config.options import derive
+
+    opt = {
+        "name": run["name"], "model": "video_base", "scale": SCALE,
+        "datasets": {"train": {
+            "name": "REDS", "mode": "REDS", "interval_list": [1], "random_reverse": False,
+            "dataroot_GT": gt, "dataroot_LQ": lq, "N_frames": 5, "use_shuffle": True,
+            "n_workers": 3, "batch_size": 32, "GT_size": 256, "LQ_size": 64,
+            "use_flip": True, "use_rot": True}},
+        "network_G": {**EDVR_M, "groups": run["groups"], "predeblur": False, "HR_in": False,
+                      **({"dtype": run["dtype"]} if run["dtype"] else {})},
+        "path": {"pretrain_model_G": None, "strict_load": True, "resume_state": resume},
+        "train": {"lr_G": 4e-4, "lr_scheme": "CosineAnnealingLR_Restart", "beta1": 0.9,
+                  "beta2": 0.99, "niter": run["niter"], "warmup_iter": -1,
+                  "T_period": [150000] * 4, "restart_weights": run["restart_weights"],
+                  "eta_min": 1e-7, "pixel_criterion": "cb", "pixel_weight": 1.0,
+                  "val_freq": 5e3, "manual_seed": 0},
+        "logger": {"print_freq": 1, "save_checkpoint_freq": TRAIN_SAVE},
+    }
+    return derive(opt, is_train=True, root=root)
+
+
+class TrainingProbe:
+    """Wraps VideoBaseModel's methods while cli/train.train runs: each
+    update's time (host clock, the card synchronised before and after),
+    its K1-K7 launches, the batch fed to update `keep` (the 1-based
+    iteration), and at a resume whether the restored net and Adam moments
+    are bitwise the saved files'."""
+
+    def __init__(self, keep: int):
+        from dynavsr_tpu_torch.models import video_base_model as vbm
+
+        self.cls, self.keep = vbm.VideoBaseModel, keep
+        self.step_s, self.step_counts, self.kept, self.resumed = [], [], None, None
+        self._orig = {n: getattr(self.cls, n) for n in
+                      ("optimize_parameters", "feed_data", "resume_training")}
+
+    def __enter__(self):
+        probe, orig = self, self._orig
+
+        def optimize_parameters(model, step=None):
+            before = all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig["optimize_parameters"](model, step)
+            torch.cuda.synchronize()
+            probe.step_s.append(time.perf_counter() - t0)
+            probe.step_counts.append({k: v - before[k] for k, v in all_counts().items()})
+
+        def feed_data(model, data, need_GT=True):
+            if model.step + 1 == probe.keep:
+                probe.kept = {k: np.array(data[k]) for k in ("LQs", "GT")}
+            orig["feed_data"](model, data, need_GT)
+
+        def resume_training(model, state_path):
+            epoch = orig["resume_training"](model, state_path)
+            saved = torch.load(f"{model.opt['path']['models']}/{model.step}_G.pth",
+                               map_location="cpu", weights_only=True)
+            state = torch.load(state_path, map_location="cpu", weights_only=True)
+            net_ok = all(torch.equal(v.cpu(), saved[k]) for k, v in model.netG.state_dict().items())
+            ours = model.optimizer.state_dict()["state"]
+            adam_ok = ours.keys() == state["optimizer"]["state"].keys() and all(
+                torch.equal(s[n].cpu(), state["optimizer"]["state"][k][n])
+                for k, s in ours.items() for n in ("step", "exp_avg", "exp_avg_sq"))
+            probe.resumed = dict(iter=model.step, saved_epoch=epoch, net_bitwise=net_ok,
+                                 adam_bitwise=adam_ok)
+            return epoch
+
+        for name, fn in (("optimize_parameters", optimize_parameters),
+                         ("feed_data", feed_data), ("resume_training", resume_training)):
+            setattr(self.cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.cls, name, fn)
+
+
+def read_metrics(opt: dict) -> list:
+    with open(f"{opt['path']['root']}/tb_logger/{opt['name']}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def record_step_dcn_calls(run) -> list:
+    """Run `run()` (one update) with every DCN call of EDVR recorded: its
+    inputs and the gradient that reached its output."""
+    calls = []
+    kernel_fn = edvr_module.deform_conv2d
+
+    def recording(x, offset, mask, weight, bias=None, deformable_groups=1):
+        out = kernel_fn(x, offset, mask, weight, bias, deformable_groups=deformable_groups)
+        rec = dict(gd=deformable_groups, args=[None if t is None else t.detach().clone()
+                                               for t in (x, offset, mask, weight, bias)])
+        out.register_hook(lambda g: rec.__setitem__("cot", g.detach().clone()))
+        calls.append(rec)
+        return out
+
+    edvr_module.deform_conv2d = recording
+    try:
+        run()
+    finally:
+        edvr_module.deform_conv2d = kernel_fn
+    return calls
+
+
+def phase_train(smi: str, gen: torch.Generator) -> tuple:
+    """9a and 9b; returns ({run: measurements}, kernel rows at the training
+    shapes)."""
+    import tempfile
+
+    from dynavsr_tpu_torch.cli.train import train
+    from dynavsr_tpu_torch.data.loader import create_dataloader, create_dataset
+
+    out, rows = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        t0 = time.perf_counter()
+        gt, lq = write_train_lmdbs(gen, root)
+        print(f"[train] wrote {len(TRAIN_CLIPS)} clips x {TRAIN_T} frames of "
+              f"{REDS_H * SCALE}x{REDS_W * SCALE} GT / {REDS_H}x{REDS_W} LQ as raw LMDBs in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for tag, run in TRAIN_RUNS.items():
+            niter = run["niter"]
+            opt = train_opt(run, gt, lq, root)
+            reset_all_counts()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            with TrainingProbe(keep=TRAIN_SAVE + 1) as probe:
+                done = train(opt)
+            run_s = time.perf_counter() - t_run
+            counts, peak = all_counts(), torch.cuda.max_memory_allocated() - held
+            check(done == niter and len(probe.step_s) == niter,
+                  f"{tag}: trained {done} iterations ({len(probe.step_s)} updates), not {niter}")
+            check_only(counts, {k: 4 * niter for k in DCN_KERNELS}, f"{tag} training")
+            for i, c in enumerate(probe.step_counts):
+                check_only(c, dict.fromkeys(DCN_KERNELS, 4), f"{tag} update {i + 1}")
+            recs = read_metrics(opt)
+            check([r["step"] for r in recs] == list(range(1, niter + 1)), f"{tag}: {recs}")
+            l_pix = [r["l_pix"] for r in recs]
+            offs = [r["dcn_offset_absmean"] for r in recs]
+            check(all(math.isfinite(v) for v in l_pix + offs), f"{tag}: l_pix {l_pix}, {offs}")
+            check(np.mean(l_pix[-2:]) < np.mean(l_pix[:2]),
+                  f"{tag}: the loss did not fall: {l_pix}")
+            check(offs[0] == 0.0, f"{tag}: offsets at update 1 are {offs[0]}, not 0")
+            first_batch = probe.kept
+
+            # Resume from the state saved at TRAIN_SAVE, to the same end.
+            state = f"{opt['path']['training_state']}/{TRAIN_SAVE}.state"
+            with TrainingProbe(keep=TRAIN_SAVE + 1) as again:
+                check(train(train_opt(run, gt, lq, root, resume=state)) == niter,
+                      f"{tag}: the resumed run did not reach {niter}")
+            res = again.resumed
+            check(res is not None and res["iter"] == TRAIN_SAVE and res["net_bitwise"]
+                  and res["adam_bitwise"], f"{tag}: resume restored {res}")
+            check(len(again.step_s) == niter - TRAIN_SAVE,
+                  f"{tag}: the resumed run made {len(again.step_s)} updates")
+            same = {k: bool(np.array_equal(first_batch[k], again.kept[k])) for k in first_batch}
+            check(all(same.values()), f"{tag}: the resumed run's batch {TRAIN_SAVE + 1} "
+                                       f"differs from the uninterrupted run's: {same}")
+            batch_sums = [float(first_batch["LQs"].sum()), float(again.kept["LQs"].sum())]
+
+            # A trained copy: one update's DCN calls held against the plain
+            # version (and timed at each shape), then 2 updates profiled.
+            trained = {**opt, "path": {**opt["path"], "resume_state": None,
+                                       "pretrain_model_G": f"{opt['path']['models']}/{niter}_G.pth"}}
+            model = create_model(trained)
+            dataset_opt = trained["datasets"]["train"]
+            loader = create_dataloader(create_dataset(dataset_opt), dataset_opt, trained)
+
+            def epochs():
+                for epoch in range(100):
+                    loader.set_epoch(epoch)
+                    yield from loader
+
+            batches = epochs()
+            model.feed_data(next(batches))
+            model.optimize_parameters()  # warm-up
+            model.feed_data(next(batches))
+            calls = record_step_dcn_calls(model.optimize_parameters)
+            check(len(calls) == 4 and all("cot" in c for c in calls),
+                  f"{tag}: recorded {len(calls)} DCN calls")
+            timed_shapes = set()
+            for c in calls:
+                shape = tuple(c["args"][0].shape)
+                label = dcn_label("train", shape)
+                for row in against_plain(label, *c["args"], c["cot"], c["gd"],
+                                         timed=shape not in timed_shapes):
+                    row["run"] = tag
+                    rows.append(row)
+                timed_shapes.add(shape)
+            del calls
+            torch.cuda.empty_cache()
+
+            def two_updates():
+                for _ in range(2):
+                    model.feed_data(next(batches))
+                    model.optimize_parameters()
+                torch.cuda.synchronize()
+
+            prof = profile_clip(two_updates, f"{tag} two updates", smi, DCN_KERNELS)
+            batches.close()
+            del model, batches, loader
+            torch.cuda.empty_cache()
+
+            timed = probe.step_s[2:]  # updates 1-2 warm up
+            waits = [r["data_wait_s"] for r in recs]
+            out[tag] = dict(
+                niter=niter, run_s=run_s, step_s=probe.step_s, s_per_iter=float(np.mean(timed)),
+                samples_per_s=32 / float(np.mean(timed)),
+                loop_step_s=[r["step_time_s"] for r in recs], data_wait_s=waits,
+                mean_data_wait_s=float(np.mean(waits[2:])), peak_gib=peak / 2**30,
+                l_pix=l_pix, grad_norm=[r["grad_norm"] for r in recs], offset_absmean=offs,
+                launches=counts, per_update=probe.step_counts[0], resumed=res,
+                batch5_lq_sums=batch_sums, busy_ms=prof.get("busy_ms"),
+                idle_share=prof.get("idle_share"),
+                dcn_ms_per_update={k: v / 2 for k, v in prof.get("kernel_ms", {}).items()},
+                top=[(n[:80], ms) for n, ms in prof.get("top", [])])
+            print(f"[train] {tag} {run['name']} (Gd {run['groups']}, "
+                  f"{run['dtype'] or 'fp32'}): {niter} updates in {run_s:.1f} s; updates 3-{niter} "
+                  f"{out[tag]['s_per_iter']:.4f} s each, {out[tag]['samples_per_s']:.1f} "
+                  f"samples/s; loader wait {out[tag]['mean_data_wait_s'] * 1e3:.1f} ms an "
+                  f"update; peak {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} held; "
+                  f"l_pix {[round(v, 5) for v in l_pix]}; resumed at {TRAIN_SAVE} bitwise, "
+                  f"batch {TRAIN_SAVE + 1} equal; launches {({k: v for k, v in counts.items() if v})}"
+                  f"  [{smi}]")
+    return out, rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1380,6 +1664,11 @@ def main() -> None:
     surface = phase_surface(smi, gen, lq, duf_lq)
     surface["seconds"] = time.perf_counter() - t_surface
     print(f"[surface] phase 8 took {surface['seconds']:.1f} s")
+    t_train = time.perf_counter()
+    training, train_rows = phase_train(smi, gen)
+    training["seconds"] = time.perf_counter() - t_train
+    print(f"[train] phase 9 took {training['seconds']:.1f} s")
+    rows += train_rows
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
     launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
@@ -1404,12 +1693,21 @@ def main() -> None:
                                max_abs_err_bf16=r16["max_abs_err"])
             if "kernel_ms" in r16:
                 kernels[-1].update(kernel_ms_bf16=r16["kernel_ms"], host_us_bf16=r16["host_us"])
+        if name in DCN_KERNELS:  # phase 9: the L1 call of a training update, 9a and 9b
+            for tag, suffix in (("9a", ""), ("9b", "_bf16")):
+                rt = next(r for r in train_rows if r["name"] == name and r["run"] == tag
+                          and "ms" in r and r["dims"][2] == 64)
+                kernels[-1].update({f"train_ms{suffix}": rt["ms"],
+                                    f"train_plain_ms{suffix}": rt["plain_ms"],
+                                    f"train_bound_ms{suffix}": rt["bound_ms"],
+                                    f"train_launches{suffix}": training[tag]["launches"][name]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
-                       "duf": duf_results, "surface": surface,
+                       "duf": duf_results, "surface": surface, "train": training,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
+    print("[train] " + json.dumps(training))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

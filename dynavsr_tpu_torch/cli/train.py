@@ -1,0 +1,186 @@
+"""Supervised training entry point (port of dynavsr_tpu/cli/train.py, its
+`video_base` branch).
+
+    python -m dynavsr_tpu_torch.cli.train -opt configs/train/train_EDVR_M_REDS.yml [--device cpu]
+
+Trains `network_G` on the config's training set (REDS or Vimeo90K, image
+folders or LMDB roots) with the config's pixel loss, Adam and lr schedule,
+on the card unless `--device cpu` is given. Every
+`logger.save_checkpoint_freq` iterations, and at the end, it writes
+`<experiments>/<name>/models/<iter>_G.pth` and
+`training_state/<iter>.state`; `path.resume_state: .../<iter>.state`
+resumes from them on exactly the batches the run would have seen next.
+Scalars go to `<root>/tb_logger/<name>/metrics.jsonl`. The downscaler
+(ROADMAP A.4) and meta-training (A.5) kinds, and multi-process launchers
+(A.6), are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os.path as osp
+import time
+from typing import Mapping, Optional
+
+from dynavsr_tpu_torch.config.options import dict2str
+from dynavsr_tpu_torch.data.loader import create_dataloader, create_dataset
+from dynavsr_tpu_torch.device import resolve_device
+from dynavsr_tpu_torch.eval.harness import evaluate_dataset
+from dynavsr_tpu_torch.models.video_base_model import create_model
+from dynavsr_tpu_torch.utils.observability import MetricsWriter
+from dynavsr_tpu_torch.utils.util import mkdir_and_rename, mkdirs, set_random_seed, setup_logger
+
+__all__ = ["main", "train"]
+
+_DOWNSCALER = ("downscaler", "estimator")
+_META = ("video_meta", "meta", "dynavsr")
+
+
+def main(argv=None) -> int:
+    """Parse the arguments and the YAML, then train; returns the last
+    iteration."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", required=True, help="Path to YAML config.")
+    parser.add_argument("--launcher", default="none")
+    parser.add_argument("--device", default=None, help="default: cuda")
+    parser.add_argument("--max-iters", type=int, default=None,
+                        help="Override train.niter (smoke tests).")
+    args = parser.parse_args(argv)
+    if args.launcher != "none":
+        raise NotImplementedError(
+            f"--launcher {args.launcher}: multi-process training (torch.distributed) is "
+            "not ported yet (ROADMAP A.6)")
+    from dynavsr_tpu_torch.config.options import parse
+
+    device = resolve_device(args.device)
+    return train(parse(args.opt, is_train=True), device=device, max_iters=args.max_iters)
+
+
+def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
+    """The training loop over a derived config (config/options.parse or
+    derive with is_train=True); returns the last iteration."""
+    device = resolve_device(device)
+    which = opt.get("model") or "video_base"
+    if which in _DOWNSCALER:
+        raise NotImplementedError(f"model {which!r}: downscaler training is ROADMAP A.4")
+    if which in _META:
+        raise NotImplementedError(f"model {which!r}: meta-training is ROADMAP A.5")
+    paths = opt["path"]
+    # The experiment directory is archived only for a fresh run: a resuming
+    # run keeps the one that holds the state it loads.
+    if not paths.get("resume_state"):
+        mkdir_and_rename(paths["experiments_root"])
+    mkdirs([paths["models"], paths["training_state"], paths["val_images"]])
+    logger = setup_logger("base", paths["log"], "train", screen=True, tofile=True)
+    logger.info(dict2str(opt))
+    seed = opt["train"].get("manual_seed") or 0
+    set_random_seed(seed)
+    tb = None
+    if (opt.get("logger") or {}).get("tb_logger", True) is not False:
+        tb = MetricsWriter(osp.join(paths["root"], "tb_logger", opt.get("name") or "run"))
+
+    train_loader = val_set = None
+    for dataset_opt in (opt["datasets"] or {}).values():
+        if dataset_opt["phase"] == "train":
+            train_set = create_dataset(dataset_opt)
+            train_loader = create_dataloader(train_set, dataset_opt, opt)
+            logger.info("Train set: %d items, %d batches/epoch", len(train_set),
+                        len(train_loader))
+        elif dataset_opt["phase"] == "val":
+            val_set = create_dataset(dataset_opt)
+    if train_loader is None:
+        raise ValueError("no train dataset in the config")
+    n_batches = len(train_loader)
+    if n_batches == 0:
+        raise ValueError(f"the train set has {len(train_loader.dataset)} items, fewer than "
+                         f"one batch of {train_loader.batch_size}: nothing would train")
+
+    model = create_model(opt, device)
+    niter = max_iters or int(opt["train"].get("niter") or 600000)
+    start_epoch, current_step = 0, 0
+    if paths.get("resume_state"):
+        saved_epoch = model.resume_training(paths["resume_state"])
+        current_step = model.step
+        # Every epoch is n_batches long from epoch 0, so the next batch is
+        # batch (step mod n) of epoch (step div n). (The JAX CLI skips
+        # step mod n batches of the saved epoch, which replays that epoch
+        # when the state was saved on its last batch.)
+        start_epoch, skip = divmod(current_step, n_batches)
+        train_loader.set_skip_batches(skip)
+        logger.info("Resumed from iter %d (saved in epoch %d): epoch %d, batch %d",
+                    current_step, saved_epoch, start_epoch, skip)
+
+    lg = opt.get("logger") or {}
+    print_freq = int(lg.get("print_freq") or 100)
+    save_freq = int(lg.get("save_checkpoint_freq") or 5000)
+    val_freq = int(opt["train"].get("val_freq") or 5000)
+    total_epochs = max(1, math.ceil(niter / n_batches))
+    t_last, wait = time.time(), 0.0
+    done = False
+    for epoch in range(start_epoch, total_epochs + 1):
+        if done:
+            break
+        train_loader.set_epoch(epoch)
+        batches = iter(train_loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t0
+            if batch is None:
+                break
+            if current_step >= niter:
+                done = True
+                break
+            current_step += 1
+            model.feed_data(batch)
+            model.optimize_parameters(current_step)
+
+            if current_step % print_freq == 0:
+                logs = model.get_current_log()
+                dt = (time.time() - t_last) / print_freq
+                t_last = time.time()
+                lr = model.get_current_learning_rate()
+                msg = " ".join(f"{k}: {v:.4e}" for k, v in logs.items())
+                logger.info("<epoch:%3d, iter:%8d, lr:%.3e, time:%.3fs, data:%.3fs> %s",
+                            epoch, current_step, lr, dt, wait / print_freq, msg)
+                if tb is not None:
+                    tb.add_scalars(current_step, {**logs, "lr": lr, "step_time_s": dt,
+                                                  "data_wait_s": wait / print_freq})
+                wait = 0.0
+
+            if val_set is not None and current_step % val_freq == 0:
+                _validate(model, val_set, opt, current_step, logger)
+
+            if current_step % save_freq == 0:
+                logger.info("Saving models and training states.")
+                model.save(current_step)
+                model.save_training_state(epoch, current_step)
+        batches.close()
+
+    logger.info("Saving the final model.")
+    model.save(current_step)
+    model.save_training_state(total_epochs, current_step)
+    logger.info("End of training.")
+    if tb is not None:
+        tb.close()
+    return current_step
+
+
+def _validate(model, val_set, opt: Mapping, step: int, logger: logging.Logger) -> None:
+    save_root = None
+    if (opt.get("logger") or {}).get("save_val_images"):
+        save_root = osp.join(opt["path"]["val_images"], f"iter_{step}")
+    results = evaluate_dataset(
+        model.make_infer_fn(), val_set,
+        n_frames=(opt["network_G"] or {}).get("nframes", 5),
+        padding=(opt["datasets"].get("val") or {}).get("padding") or "reflection",
+        chunk=model.infer_chunk, save_root=save_root, logger=None)
+    if "_avg" in results:
+        logger.info("# Validation iter %d # PSNR: %.4f SSIM: %.4f", step,
+                    results["_avg"]["psnr_avg"], results["_avg"]["ssim_avg"])
+
+
+if __name__ == "__main__":
+    main()

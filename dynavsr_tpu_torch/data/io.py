@@ -1,8 +1,8 @@
-"""Frame IO — copy of dynavsr_tpu/data/io.py (image folders only).
+"""Frame IO — copy of dynavsr_tpu/data/io.py (image folders).
 
 `read_img` returns float32 RGB in [0, 1]. cv2 is imported inside the
 function that reads a file, so the package imports on a host without it.
-The LMDB reader is not ported yet.
+LMDB roots are read by data/lmdb_dataset.py.
 """
 
 from __future__ import annotations

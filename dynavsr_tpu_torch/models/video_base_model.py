@@ -1,17 +1,24 @@
-"""Plain evaluation model (port of the eval half of
-dynavsr_tpu/models/video_base_model.py:VideoBaseModel and create_model).
+"""The supervised model (port of dynavsr_tpu/models/video_base_model.py:
+VideoBaseModel, trainer_config_from_opt and create_model).
 
 `VideoBaseModel(opt, device)` builds `network_G` with define_G on the card
-(unless the caller asks for the CPU), loads `path.pretrain_model_G`
-through train/checkpoint.load_pretrained (honouring `path.strict_load`),
-and hands out the forwards evaluation needs: numpy windows in, numpy SR
-out, no autograd. The training methods wait for the port's trainer
-(ROADMAP A.3).
+(unless the caller asks for the CPU) and loads `path.pretrain_model_G`
+through train/checkpoint.load_pretrained (honouring `path.strict_load`).
+It hands out the forwards evaluation needs (numpy windows in, numpy SR
+out, no autograd, the net in eval mode for the call). With
+`opt['is_train']` it also trains, with the reference's surface:
+feed_data / optimize_parameters / test / get_current_log /
+get_current_visuals / get_current_learning_rate / save /
+save_training_state / resume_training. update_learning_rate is a no-op,
+as in JAX: the train step sets each update's lr from the schedule.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+import contextlib
+import logging
+import os.path as osp
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -20,13 +27,44 @@ from dynavsr_tpu_torch.adapt.adaptation import seq_forward
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
-from dynavsr_tpu_torch.train.checkpoint import load_pretrained
+from dynavsr_tpu_torch.train import checkpoint
+from dynavsr_tpu_torch.train.checkpoint import load_network, load_pretrained, save_network
+from dynavsr_tpu_torch.train.trainer import (
+    TrainerConfig,
+    make_optimizer,
+    make_schedule,
+    make_train_step,
+)
 
-__all__ = ["VideoBaseModel", "create_model"]
+__all__ = ["VideoBaseModel", "create_model", "trainer_config_from_opt"]
+
+
+def trainer_config_from_opt(opt: Mapping) -> TrainerConfig:
+    """The `train` block's fields (the JAX package's names and defaults).
+    `restarts` is not read, as in JAX: the periods set the restarts."""
+    t = opt.get("train") or {}
+    return TrainerConfig(
+        lr=t.get("lr_G") or 4e-4,
+        beta1=t.get("beta1") or 0.9,
+        beta2=t.get("beta2") or 0.99,
+        scheme=t.get("lr_scheme") or "CosineAnnealingLR_Restart",
+        periods=tuple(t.get("T_period") or (150000,) * 4),
+        restart_weights=tuple(t.get("restart_weights") or (1, 0.5, 0.5, 0.5)),
+        eta_min=t.get("eta_min") or 1e-7,
+        milestones=tuple(t.get("lr_steps") or ()),
+        gamma=t.get("lr_gamma") or 0.5,
+        warmup_iter=t.get("warmup_iter") if t.get("warmup_iter") is not None else -1,
+        pixel_weight=t.get("pixel_weight") or 1.0,
+        criterion=t.get("pixel_criterion") or "cb",
+        reduction=t.get("pixel_criterion_reduction") or "mean",
+        weight_decay=float(t.get("weight_decay_G") or t.get("weight_decay") or 0.0),
+        grad_clip=float(t["grad_clip"]) if t.get("grad_clip") else None,
+    )
 
 
 class VideoBaseModel:
-    """The VSR net of a test config, in eval mode on `device`."""
+    """The VSR net of a config on `device`; with opt['is_train'], also its
+    optimizer and the count of updates made (`step`)."""
 
     def __init__(self, opt: Mapping, device=None):
         self.opt = opt
@@ -40,7 +78,90 @@ class VideoBaseModel:
         path = opt.get("path") or {}
         load_pretrained(self.netG, path.get("pretrain_model_G"),
                         strict=path.get("strict_load", True) is not False)
+        self.is_train = bool(opt.get("is_train"))
+        self.cfg = trainer_config_from_opt(opt)
+        self.sched = make_schedule(self.cfg)
+        self.step = 0
+        self.log: Dict[str, float] = {}
+        self._batch: Dict[str, torch.Tensor] = {}
+        self._fake_H: Optional[torch.Tensor] = None
+        self.optimizer = make_optimizer(self.cfg, self.netG.parameters()) if self.is_train else None
+        self._train_step = None
 
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """The net in eval mode for the block, then back in the mode it had."""
+        was_training = self.netG.training
+        try:
+            yield self.netG.eval()
+        finally:
+            self.netG.train(was_training)
+
+    # ------------------------------------------------------------ training
+    def feed_data(self, data: Mapping, need_GT: bool = True) -> None:
+        """A loader batch (numpy NHWC) -> float32 tensors on the device."""
+        self._batch = {"LQs": torch.as_tensor(np.asarray(data["LQs"], np.float32),
+                                              device=self.device)}
+        if need_GT and "GT" in data:
+            self._batch["GT"] = torch.as_tensor(np.asarray(data["GT"], np.float32),
+                                                device=self.device)
+
+    def optimize_parameters(self, step: Optional[int] = None) -> None:
+        """One update on the fed batch. The lr comes from the model's own
+        count of updates (`self.step`), which resume_training restores;
+        `step` (the loop's iteration) is accepted for the reference's
+        surface."""
+        if self.optimizer is None:
+            raise RuntimeError("the model was not built for training (opt['is_train'])")
+        if self._train_step is None:
+            self._train_step = make_train_step(self.netG, self.cfg, self.optimizer)
+        metrics = self._train_step(self._batch, self.step)
+        self.step += 1
+        self.log = {k: float(v) for k, v in metrics.items()}
+        off = self.log.get("dcn_offset_absmean", 0.0)
+        if off > 100.0:  # the reference DCN_sep's guard
+            logging.getLogger("base").warning(
+                "Offset abs mean is %.1f, larger than 100 — DCN offsets may be diverging.", off)
+
+    def test(self) -> None:
+        """The fed windows' SR, as they are (no padding), in eval mode."""
+        with torch.no_grad(), self._eval_mode() as net:
+            self._fake_H = net(self._batch["LQs"])
+
+    def get_current_log(self) -> Dict[str, float]:
+        return dict(self.log)
+
+    def get_current_visuals(self, need_GT: bool = True) -> Dict[str, np.ndarray]:
+        out = {"LQ": self._batch["LQs"][0].cpu().numpy(),
+               "restored": self._fake_H[0].float().cpu().numpy()}
+        if need_GT and "GT" in self._batch:
+            out["GT"] = self._batch["GT"][0].cpu().numpy()
+        return out
+
+    def get_current_learning_rate(self) -> float:
+        return float(self.sched(self.step))
+
+    def update_learning_rate(self, step: int, warmup_iter: int = -1) -> None:
+        """No-op: the train step sets every update's lr from the schedule."""
+
+    def save(self, it) -> str:
+        """<models>/<it>_G.pth."""
+        return save_network(self.opt["path"]["models"], int(it), self.netG)
+
+    def save_training_state(self, epoch: int, it: int) -> str:
+        """<training_state>/<it>.state."""
+        return checkpoint.save_training_state(self.opt["path"]["training_state"], epoch,
+                                              int(it), self.optimizer)
+
+    def resume_training(self, state_path: str) -> int:
+        """Restore the optimizer and the update count from a .state file and
+        the net from <models>/<iter>_G.pth; returns the saved epoch."""
+        epoch, it = checkpoint.resume_training(state_path, self.optimizer)
+        load_network(osp.join(self.opt["path"]["models"], f"{it}_G.pth"), self.netG)
+        self.step = it
+        return epoch
+
+    # ---------------------------------------------------------- evaluation
     def make_infer_fn(self) -> Callable[[np.ndarray], np.ndarray]:
         """(F, N, h, w, 3) windows -> (F, H, W, 3) SR, with the net's input
         convention (models/padding.make_model_apply: EDVR's mod-4 padding,
@@ -48,9 +169,9 @@ class VideoBaseModel:
         apply = make_model_apply(self.netG.arch, self.scale)
 
         def infer(windows: np.ndarray) -> np.ndarray:
-            with torch.no_grad():
+            with torch.no_grad(), self._eval_mode() as net:
                 x = torch.as_tensor(np.asarray(windows), device=self.device)
-                return apply(self.netG, x).cpu().numpy()
+                return apply(net, x).cpu().numpy()
 
         return infer
 
@@ -70,9 +191,8 @@ class VideoBaseModel:
             ph, pw = (-h) % mod, (-w) % mod
             if ph or pw:
                 frames = np.pad(frames, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="reflect")
-            with torch.no_grad():
-                self.netG.eval()
-                sr = seq_forward(self.netG, torch.as_tensor(frames, device=self.device),
+            with torch.no_grad(), self._eval_mode() as net:
+                sr = seq_forward(net, torch.as_tensor(frames, device=self.device),
                                  torch.as_tensor(win, dtype=torch.long, device=self.device),
                                  self.infer_chunk)
             return sr[:, : h * self.scale, : w * self.scale].cpu().numpy()
@@ -85,7 +205,10 @@ def create_model(opt: Mapping, device=None) -> VideoBaseModel:
     which = opt.get("model") or "video_base"
     if which in ("video_base", "VideoSR_base", "sr"):
         return VideoBaseModel(opt, device)
-    if which in ("video_meta", "meta", "dynavsr", "downscaler", "estimator"):
+    if which in ("downscaler", "estimator"):
         raise NotImplementedError(
-            f"Model [{which}] trains; the port's trainers come with ROADMAP A.3-A.5")
+            f"Model [{which}] trains the downscaler; that trainer comes with ROADMAP A.4")
+    if which in ("video_meta", "meta", "dynavsr"):
+        raise NotImplementedError(
+            f"Model [{which}] is meta-training; that trainer comes with ROADMAP A.5")
     raise NotImplementedError(f"Model [{which}] not recognized.")

@@ -1,13 +1,15 @@
-"""Network checkpoints (port of the network half of
-dynavsr_tpu/train/checkpoint.py, plus the loader the entry points share).
+"""Checkpoints and training state (port of dynavsr_tpu/train/checkpoint.py,
+plus the loader the entry points share).
 
-The port's own format is a plain state_dict under the reference's keys,
-written with `torch.save` as `<models_dir>/<iter>_<label>.pth`. A reference
-`.pth` / `.pt` has the same keys (after the DDP `module.` prefix is
-stripped), so `load_pretrained` reads both the same way. The JAX package's
-orbax checkpoint directories are not read: that needs orbax and tensorstore,
-which the port does not import. Training state and resume wait for the
-port's trainer (ROADMAP A.3).
+The port's own network format is a plain state_dict under the reference's
+keys, written with `torch.save` as `<models_dir>/<iter>_<label>.pth`. A
+reference `.pth` / `.pt` has the same keys (after the DDP `module.` prefix
+is stripped), so `load_pretrained` reads both the same way. The training
+state is `<state_dir>/<iter>.state`: the epoch, the iteration and the
+optimizer's state_dict (the lr schedule is a function of the iteration, so
+nothing else is needed to resume). The JAX package's orbax checkpoint
+directories are not read: that needs orbax and tensorstore, which the port
+does not import.
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ from __future__ import annotations
 import logging
 import os
 import os.path as osp
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from dynavsr_tpu_torch.convert.from_jax import strip_module_prefix
 
-__all__ = ["save_network", "load_network", "load_pretrained", "latest_checkpoint_iter"]
+__all__ = ["save_network", "load_network", "load_pretrained", "latest_checkpoint_iter",
+           "save_training_state", "resume_training"]
 
 logger = logging.getLogger("dynavsr_tpu_torch")
 
@@ -71,7 +74,7 @@ def load_pretrained(model: torch.nn.Module, path: Optional[str], strict: bool = 
             f"{path}: a JAX orbax checkpoint directory. Reading it needs orbax and "
             "tensorstore, which the port does not import; restore it with the JAX package "
             "and convert the params with convert/from_jax.py:jax_params_to_state_dict, then "
-            "torch.save the state_dict as a .pth (ROADMAP A.3)")
+            "torch.save the state_dict as a .pth (ROADMAP A.2)")
     raise ValueError(f"{path}: not a .pth / .pt checkpoint")
 
 
@@ -83,3 +86,21 @@ def latest_checkpoint_iter(models_dir: str, label: str = "G") -> Optional[int]:
     its = [int(name[: -len(suffix)]) for name in os.listdir(models_dir)
            if name.endswith(suffix) and name[: -len(suffix)].isdigit()]
     return max(its) if its else None
+
+
+def save_training_state(state_dir: str, epoch: int, it: int,
+                        optimizer: torch.optim.Optimizer) -> str:
+    """Write {epoch, iter, optimizer state_dict} to <state_dir>/<it>.state."""
+    os.makedirs(state_dir, exist_ok=True)
+    path = osp.join(osp.abspath(state_dir), f"{it}.state")
+    torch.save({"epoch": int(epoch), "iter": int(it), "optimizer": optimizer.state_dict()}, path)
+    return path
+
+
+def resume_training(path: str, optimizer: torch.optim.Optimizer) -> Tuple[int, int]:
+    """Load a .state file's optimizer state into `optimizer` (its tensors
+    mapped to the device of the optimizer's parameters) -> (epoch, iter)."""
+    device = next(p.device for g in optimizer.param_groups for p in g["params"])
+    state = torch.load(path, map_location=device, weights_only=True)
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["epoch"]), int(state["iter"])

@@ -145,6 +145,38 @@ def test_bwd_data_near_offsets(cuda, shape, gd, dtype):
             _close(g, r, 2 ** -8 + 1e-4)
 
 
+# Supervised training of EDVR-M (train_EDVR_M_REDS.yml / train_EDVR_M_TPU.yml):
+# batch 32 x 5 frames through PCD, so 160 rows of 64x64 at L1 (and the
+# cascade), 10x the pixels of the adaptation calls above.
+@pytest.mark.gpu
+@pytest.mark.parametrize("gd,dtype", [(8, torch.float32), (2, torch.bfloat16)],
+                         ids=["Gd8-fp32", "Gd2-bf16"])
+@pytest.mark.parametrize("offsets", ["wide", "near"])
+def test_kernels_match_plain_at_the_training_shape(cuda, gd, dtype, offsets):
+    """K1, K2 and K3 at 160x64x64x64 against the plain version, wide
+    (N(0.37, 2^2) px) and near (N(0, 0.3^2) px, EDVR's kind) offsets, at
+    the tolerances above."""
+    x, offset, mask, weight, bias, cot = _inputs(160, 64, 64, 64, 64, gd, cuda, seed=11)
+    if offsets == "near":
+        offset = (offset - 0.37) * 0.15
+    x, offset, mask, weight, bias, cot = [t.to(dtype) for t in (x, offset, mask, weight, bias, cot)]
+    ref, want = _plain_grads(x, offset, mask, weight, bias, cot, gd)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    got = [dcn.dcn_fwd(x, offset, mask, weight, bias, gd),
+           *dcn.dcn_bwd_data(x_cl, offset, mask, weight, cot, gd),
+           dcn.dcn_bwd_weight(x_cl, offset, mask, cot, gd)]
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for g, r in zip(got, [ref, *want[:3], want[3]]):
+        _close(g, r, tol)
+    if dtype == torch.bfloat16:
+        ref16, grads16 = _plain_grads(x, offset, mask, weight, bias, cot, gd,
+                                      compute_dtype=torch.bfloat16)
+        _close(got[0], ref16, 2 ** -8)
+        for g, r in zip(got[1:], [*grads16[:3], grads16[3]]):
+            _close(g, r, 2 ** -8 + 1e-4)
+
+
 @pytest.mark.gpu
 def test_autograd_goes_through_the_kernels(cuda):
     x, offset, mask, weight, bias, cot = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=0)

@@ -390,22 +390,42 @@ def test_non_strict_load_keeps_the_model_where_shapes_differ(tmp_path):
 
 
 def test_what_the_port_still_refuses_says_why(tmp_path):
-    """Only LMDB roots, orbax checkpoint directories, the training dataset
-    modes and the training models raise, each naming its ROADMAP item and
-    the reason."""
+    """Only orbax checkpoint directories, the meta-training dataset modes,
+    the downscaler and meta-training models, multi-process launchers and
+    eval.tile raise, each naming its ROADMAP item and the reason. An LMDB
+    root now reads: a test set over one (raw frames with their .meta, the
+    port's writer) gives JAX's items."""
+    from dynavsr_tpu_torch.cli import train as train_cli
+    from dynavsr_tpu_torch.data.lmdb_native import LmdbWriter
+
     net = _tiny_edvr(0)
     (tmp_path / "100_G").mkdir()
     for ckpt in (tmp_path / "100_G", tmp_path / "DynaVSR_EDVR_M.ckpt"):
-        with pytest.raises(NotImplementedError, match="orbax.*tensorstore.*A.3"):
+        with pytest.raises(NotImplementedError, match="orbax.*tensorstore.*A.2"):
             load_pretrained(net, str(ckpt))
-    with pytest.raises(NotImplementedError, match="LMDB.*A.3"):
-        create_dataset({"mode": "video_test", "dataroot_LQ": str(tmp_path / "x.lmdb")})
-    with pytest.raises(NotImplementedError, match="training set.*A.3"):
-        create_dataset({"mode": "REDS", "dataroot_LQ": str(tmp_path)})
+    frames = (np.random.default_rng(0).random((4, 6, 5, 3)) * 255).astype(np.uint8)
+    lmdb = str(tmp_path / "x.lmdb")
+    with LmdbWriter(lmdb) as w:
+        for i, f in enumerate(frames):
+            w.put(f"clip_{i:08d}".encode(), f.tobytes())
+            w.put(f"clip_{i:08d}.meta".encode(), b"6x5x3")
+    opt = {"mode": "video_test", "dataroot_LQ": lmdb, "N_frames": 3}
+    ours, theirs = create_dataset(opt), jax_datasets.VideoTestDataset(opt)
+    assert len(ours) == len(theirs) == 4
+    for i in range(4):
+        np.testing.assert_array_equal(ours[i]["LQs"], theirs[i]["LQs"])
+    np.testing.assert_array_equal(ours.clip_frames("clip"), frames[..., ::-1] / np.float32(255))
+    for mode in ("meta", "meta_learner", "MetaREDS", "MetaVimeo"):
+        with pytest.raises(NotImplementedError, match="meta-training.*A.5"):
+            create_dataset({"mode": mode, "dataroot_LQ": str(tmp_path)})
     with pytest.raises(NotImplementedError, match="not recognized"):
         create_dataset({"mode": "Kinetics", "dataroot_LQ": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(NotImplementedError, match="meta-training.*A.5"):
         create_model({"model": "video_meta", "network_G": {}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="downscaler.*A.4"):
+        create_model({"model": "downscaler", "network_G": {}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="torch.distributed.*A.6"):
+        train_cli.main(["-opt", "unused.yml", "--launcher", "pytorch"])
     with pytest.raises(NotImplementedError, match="eval.tile"):
         VideoBaseModel({"network_G": {"which_model_G": "MFDN", "nf": 8}, "eval": {"tile": 64}},
                        device="cpu")
