@@ -1,18 +1,32 @@
-"""Supervised training entry point (port of dynavsr_tpu/cli/train.py, its
-`video_base` branch).
+"""Training entry point (port of dynavsr_tpu/cli/train.py): supervised VSR
+training, downscaler training and DynaVSR meta-training, by `model`.
 
     python -m dynavsr_tpu_torch.cli.train -opt configs/train/train_EDVR_M_REDS.yml [--device cpu]
+    python -m dynavsr_tpu_torch.cli.train_downscaler -opt configs/train/train_MFDN_Vimeo90K.yml
+    python -m dynavsr_tpu_torch.cli.train_dynavsr -opt configs/train/train_DynaVSR_EDVR_REDS.yml
 
-Trains `network_G` on the config's training set (REDS or Vimeo90K, image
-folders or LMDB roots) with the config's pixel loss, Adam and lr schedule,
-on the card unless `--device cpu` is given. Every
-`logger.save_checkpoint_freq` iterations, and at the end, it writes
+Trains `network_G` on the config's training set (image folders or LMDB
+roots) on the card unless `--device cpu` is given:
+- `video_base`: REDS / Vimeo90K windows and their GT, the config's pixel
+  loss, Adam and lr schedule;
+- `downscaler` (MFDN / SFDN): HR windows of a `meta` set, from which each
+  step synthesises LR = (HR * k) ds and SLR = (LR * k) ds with one random
+  blur kernel per clip (data/degradations.synthesize_pair); the net learns
+  LR -> SLR;
+- `video_meta`: the same (LR, SLR) pairs, or SLR = network_E(LR) with a
+  frozen estimator (`network_E`, weights from `path.pretrain_model_E`),
+  and one meta step a batch (train/meta.py).
+Each step's degradations come from a generator seeded by (manual_seed,
+iteration), so a resumed run draws what the uninterrupted run drew. (The
+JAX CLI makes its key after the resume and splits it once a step, so a
+resumed run replays the degradations of steps 1, 2, ...)
+
+Every `logger.save_checkpoint_freq` iterations, and at the end, it writes
 `<experiments>/<name>/models/<iter>_G.pth` and
 `training_state/<iter>.state`; `path.resume_state: .../<iter>.state`
 resumes from them on exactly the batches the run would have seen next.
-Scalars go to `<root>/tb_logger/<name>/metrics.jsonl`. The downscaler
-(ROADMAP A.4) and meta-training (A.5) kinds, and multi-process launchers
-(A.6), are not ported yet and raise.
+Scalars go to `<root>/tb_logger/<name>/metrics.jsonl`. Multi-process
+launchers (ROADMAP A.6) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,20 +36,82 @@ import logging
 import math
 import os.path as osp
 import time
-from typing import Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
 
 from dynavsr_tpu_torch.config.options import dict2str
+from dynavsr_tpu_torch.data.degradations import synthesize_pair
 from dynavsr_tpu_torch.data.loader import create_dataloader, create_dataset
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import evaluate_dataset
+from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator
 from dynavsr_tpu_torch.models.video_base_model import create_model
+from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 from dynavsr_tpu_torch.utils.observability import MetricsWriter
 from dynavsr_tpu_torch.utils.util import mkdir_and_rename, mkdirs, set_random_seed, setup_logger
 
-__all__ = ["main", "train"]
+__all__ = ["main", "train", "synthesize_meta_batch", "synthesize_downscaler_batch",
+           "noise_range", "step_generator", "build_frozen_estimator"]
 
 _DOWNSCALER = ("downscaler", "estimator")
 _META = ("video_meta", "meta", "dynavsr")
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of iteration `step`'s degradations, a function of
+    (seed, step) only."""
+    state = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(state)
+
+
+def synthesize_meta_batch(gen: torch.Generator, hr, scale: int,
+                          estimator: Optional[Callable] = None,
+                          noise_range: Tuple[float, float] = (0.0, 0.0)) -> Dict[str, torch.Tensor]:
+    """(SLR, LR, centres) from HR windows (B, N, H, W, 3), on gen's
+    device. With an estimator, SLR = estimator(LR) (DynaVSR's
+    estimator-in-the-loop training) instead of the same-kernel synthesis."""
+    hr = torch.as_tensor(hr, dtype=torch.float32, device=gen.device)
+    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range)
+    if estimator is not None:
+        slr = estimator(lr)
+    c = hr.shape[1] // 2
+    return {"SLR": slr, "LR": lr, "LR_center": lr[:, c], "HR_center": hr[:, c]}
+
+
+def synthesize_downscaler_batch(gen: torch.Generator, hr, scale: int,
+                                noise_range: Tuple[float, float] = (0.0, 0.0)
+                                ) -> Dict[str, torch.Tensor]:
+    """{LR, SLR} from HR windows (B, N, H, W, 3), on gen's device."""
+    hr = torch.as_tensor(hr, dtype=torch.float32, device=gen.device)
+    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range)
+    return {"LR": lr, "SLR": slr}
+
+
+def noise_range(opt: Mapping) -> Tuple[float, float]:
+    """datasets.train.noise_range (the JAX package's read-noise extension),
+    (0, 0) when absent."""
+    nr = ((opt.get("datasets") or {}).get("train") or {}).get("noise_range") or (0.0, 0.0)
+    return float(nr[0]), float(nr[1])
+
+
+def build_frozen_estimator(opt: Mapping, device) -> Optional[Callable]:
+    """network_E (MFDN on the training windows' N_frames, or SFDN) built
+    by define_G, loaded from path.pretrain_model_E when set, run in eval
+    mode under torch.no_grad; None without network_E."""
+    if not opt.get("network_E"):
+        return None
+    frames = ((opt.get("datasets") or {}).get("train") or {}).get("N_frames") or 5
+    est = build_estimator(opt["network_E"], opt.get("scale", 4), frames, device)
+    load_pretrained(est, (opt.get("path") or {}).get("pretrain_model_E"))
+    est.requires_grad_(False)
+
+    def estimator(lr: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return est(lr)
+
+    return estimator
 
 
 def main(argv=None) -> int:
@@ -63,10 +139,6 @@ def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
     derive with is_train=True); returns the last iteration."""
     device = resolve_device(device)
     which = opt.get("model") or "video_base"
-    if which in _DOWNSCALER:
-        raise NotImplementedError(f"model {which!r}: downscaler training is ROADMAP A.4")
-    if which in _META:
-        raise NotImplementedError(f"model {which!r}: meta-training is ROADMAP A.5")
     paths = opt["path"]
     # The experiment directory is archived only for a fresh run: a resuming
     # run keeps the one that holds the state it loads.
@@ -112,6 +184,21 @@ def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
         logger.info("Resumed from iter %d (saved in epoch %d): epoch %d, batch %d",
                     current_step, saved_epoch, start_epoch, skip)
 
+    scale = opt.get("scale", 4)
+    noise = noise_range(opt)
+    estimator = build_frozen_estimator(opt, device) if which in _META else None
+
+    def feed(batch, step: int) -> None:
+        if which in _META:
+            model.feed_data(synthesize_meta_batch(step_generator(seed, step, device),
+                                                  batch["HR"], scale, estimator, noise))
+        elif which in _DOWNSCALER:
+            model.feed_data(synthesize_downscaler_batch(
+                step_generator(seed, step, device), batch.get("HR", batch.get("GT")), scale,
+                noise))
+        else:
+            model.feed_data(batch)
+
     lg = opt.get("logger") or {}
     print_freq = int(lg.get("print_freq") or 100)
     save_freq = int(lg.get("save_checkpoint_freq") or 5000)
@@ -134,7 +221,7 @@ def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
                 done = True
                 break
             current_step += 1
-            model.feed_data(batch)
+            feed(batch, current_step)
             model.optimize_parameters(current_step)
 
             if current_step % print_freq == 0:

@@ -7,7 +7,8 @@ from `interval_list`, `random_reverse`, the window re-centred inside its
 clip (and its border frames repeated when the clip is shorter than the
 window), a paired random crop and flip / rotate augmentation; the GT is the
 centre frame. Vimeo90KDataset: the same over septuplets (flat or nested
-layout, optionally restricted by `meta_info_file`). VideoTestDataset (Vid4 /
+layout, optionally restricted by `meta_info_file`). MetaVideoDataset: HR
+windows only, for meta-training and downscaler training. VideoTestDataset (Vid4 /
 REDS4): whole clips in memory, every frame a centre. Vimeo90KTestDataset
 (Vimeo90K-T): one item per septuplet, its centre frame scored.
 
@@ -19,17 +20,18 @@ batches them.
 
 from __future__ import annotations
 
+import bisect
 import random
 import warnings
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 
-from dynavsr_tpu_torch.data.io import glob_clip_folders, read_img
+from dynavsr_tpu_torch.data.io import glob_clip_folders, read_img, read_img_u8, to_float
 from dynavsr_tpu_torch.data.windows import index_generation
 
-__all__ = ["REDSDataset", "Vimeo90KDataset", "VideoTestDataset", "Vimeo90KTestDataset",
-           "augment", "paired_random_crop"]
+__all__ = ["REDSDataset", "Vimeo90KDataset", "MetaVideoDataset", "VideoTestDataset",
+           "Vimeo90KTestDataset", "augment", "paired_random_crop"]
 
 REDS4_CLIPS = ("000", "011", "015", "020")
 
@@ -80,6 +82,12 @@ class _ClipIndex:
         if self._lmdb is not None:
             return self._lmdb.read_frame(self.clips[clip][i])
         return read_img(self.clips[clip][i])
+
+    def read_u8(self, clip: str, i: int) -> np.ndarray:
+        """Frame i as stored (RGB), before `read`'s float conversion."""
+        if self._lmdb is not None:
+            return self._lmdb.read_frame_u8(self.clips[clip][i])
+        return read_img_u8(self.clips[clip][i])
 
     def read_seq(self, clip: str, idxs) -> np.ndarray:
         return np.stack([self.read(clip, int(i)) for i in idxs], axis=0)
@@ -173,6 +181,58 @@ class Vimeo90KDataset(REDSDataset):
             if not self.names:
                 raise FileNotFoundError(f"no clips from {meta} found under {opt['dataroot_GT']}")
         self.lengths = {n: len(self.gt_index.clips[n]) for n in self.names}
+
+
+class MetaVideoDataset:
+    """Meta-training and downscaler-training items: HR windows only (the
+    `meta` dataset modes); LR / SLR are synthesised on the device from them
+    (data/degradations.synthesize_pair). opt keys: dataroot_GT (folders or
+    an LMDB root), N_frames, GT_size, scale.
+
+    Item i is the temporal window at position i of the cumulative windows
+    of every clip, so one epoch visits each window exactly once; the rng
+    draws only the spatial crop. Frames are cropped as read (uint8) and
+    converted to float after: the same floats as cropping the float frames,
+    for a fraction of the conversion."""
+
+    def __init__(self, opt: Mapping):
+        self.opt = opt
+        self.scale = opt.get("scale", 4)
+        self.n_frames = opt.get("N_frames", 5)
+        self.hr_size = opt.get("GT_size", 128)
+        self.index = _ClipIndex(opt["dataroot_GT"])
+        self.names = self.index.names
+        self.lengths = {n: len(self.index.clips[n]) for n in self.names}
+        # Cumulative window counts: index -> (clip, first frame).
+        self._bounds, self._spans = [], []
+        base = 0
+        for n in self.names:
+            self._spans.append((n, base))
+            base += max(1, self.lengths[n] - self.n_frames + 1)
+            self._bounds.append(base)
+
+    def __len__(self) -> int:
+        return self._bounds[-1] if self._bounds else 0
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.get_item(index)
+
+    def get_item(self, index: int, rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+        """The window at `index` (mod len), cropped to GT_size at a position
+        drawn from `rng` (random.Random(index) when none is given)."""
+        if rng is None:
+            rng = random.Random(index)
+        j = index % len(self)
+        clip, base = self._spans[bisect.bisect_right(self._bounds, j)]
+        start = j - base
+        t = self.lengths[clip]
+        frames = [self.index.read_u8(clip, min(start + i, t - 1)) for i in range(self.n_frames)]
+        h, w = frames[0].shape[:2]
+        s = self.hr_size
+        top = rng.randint(0, max(0, h - s))
+        left = rng.randint(0, max(0, w - s))
+        hr = np.stack([to_float(f[top: top + s, left: left + s]) for f in frames], axis=0)
+        return {"HR": hr, "key": f"{clip}_{start:08d}"}
 
 
 class VideoTestDataset:

@@ -13,13 +13,25 @@ from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["read_img", "glob_clip_folders"]
+__all__ = ["read_img", "read_img_u8", "to_float", "glob_clip_folders"]
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif")
 
 
 def read_img(path: str) -> np.ndarray:
     """Read one image -> float32 RGB HWC in [0, 1]."""
+    return to_float(read_img_u8(path))
+
+
+def to_float(img: np.ndarray) -> np.ndarray:
+    """A frame as read (RGB HWC, integer) -> float32 in [0, 1]. Elementwise,
+    so cropping before it gives the same floats as cropping after."""
+    return np.ascontiguousarray(img).astype(np.float32) / 255.0
+
+
+def read_img_u8(path: str) -> np.ndarray:
+    """Read one image -> RGB HWC as stored (uint8 for 8-bit files), before
+    the float conversion of `read_img`."""
     import cv2
 
     img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
@@ -29,8 +41,7 @@ def read_img(path: str) -> np.ndarray:
         img = img[:, :, None].repeat(3, axis=2)
     if img.shape[2] == 4:
         img = img[:, :, :3]
-    img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    return img.astype(np.float32) / 255.0
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 def glob_clip_folders(dataroot: str) -> Dict[str, List[str]]:

@@ -17,6 +17,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from dynavsr_tpu_torch.data.io import to_float
 from dynavsr_tpu_torch.data.lmdb_native import LmdbReader
 
 __all__ = ["LmdbClipIndex"]
@@ -26,7 +27,8 @@ _SIGNATURES = (b"\x89PNG\r\n\x1a\n", b"\xff\xd8\xff", b"BM", b"II*\x00", b"MM\x0
 
 class LmdbClipIndex:
     """Maps clip -> its frame keys (sorted); read_frame returns float32 RGB
-    in [0, 1], grey frames repeated to 3 channels."""
+    in [0, 1], grey frames repeated to 3 channels (read_frame_u8 the same
+    frame before the float conversion)."""
 
     def __init__(self, path: str):
         self.reader = LmdbReader(path)
@@ -42,6 +44,11 @@ class LmdbClipIndex:
         self.names = sorted(self.clips)
 
     def read_frame(self, key: bytes) -> np.ndarray:
+        return to_float(self.read_frame_u8(key))
+
+    def read_frame_u8(self, key: bytes) -> np.ndarray:
+        """The frame as stored, RGB (a view of the entry where it is raw),
+        before read_frame's float conversion."""
         buf = self.reader.get(key)
         if buf is None:
             raise KeyError(key)
@@ -62,4 +69,4 @@ class LmdbClipIndex:
             img = img[:, :, None]
         if img.shape[2] == 1:
             img = img.repeat(3, axis=2)
-        return np.ascontiguousarray(img[:, :, 2::-1]).astype(np.float32) / 255.0
+        return img[:, :, 2::-1]

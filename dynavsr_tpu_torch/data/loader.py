@@ -19,6 +19,7 @@ from typing import Dict, Iterator, Mapping, Optional
 import numpy as np
 
 from dynavsr_tpu_torch.data.datasets import (
+    MetaVideoDataset,
     REDSDataset,
     VideoTestDataset,
     Vimeo90KDataset,
@@ -44,9 +45,7 @@ def create_dataset(dataset_opt: Mapping):
     if mode in _VIMEO_TEST:
         return Vimeo90KTestDataset(dataset_opt)
     if mode in _META:
-        raise NotImplementedError(
-            f"dataset mode {mode!r} is the meta-training set; it comes with the port's "
-            "meta-training (ROADMAP A.5)")
+        return MetaVideoDataset(dataset_opt)
     raise NotImplementedError(f"Dataset [{mode}] is not recognized.")
 
 

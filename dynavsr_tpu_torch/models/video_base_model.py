@@ -1,5 +1,6 @@
-"""The supervised model (port of dynavsr_tpu/models/video_base_model.py:
-VideoBaseModel, trainer_config_from_opt and create_model).
+"""The trainable models (port of dynavsr_tpu/models/video_base_model.py:
+VideoBaseModel, MetaModel, DownscalerModel, trainer_config_from_opt and
+create_model).
 
 `VideoBaseModel(opt, device)` builds `network_G` with define_G on the card
 (unless the caller asks for the CPU) and loads `path.pretrain_model_G`
@@ -11,11 +12,17 @@ feed_data / optimize_parameters / test / get_current_log /
 get_current_visuals / get_current_learning_rate / save /
 save_training_state / resume_training. update_learning_rate is a no-op,
 as in JAX: the train step sets each update's lr from the schedule.
+
+MetaModel meta-trains the VSR net (train/meta.py) on batches of SLR / LR
+windows and their LR / HR centres, both forwards mod-padded as
+`make_model_apply` pads them. DownscalerModel trains MFDN / SFDN with the
+LR windows as input and the SLR windows as target.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import os.path as osp
 from typing import Callable, Dict, Mapping, Optional
@@ -29,6 +36,7 @@ from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
 from dynavsr_tpu_torch.train import checkpoint
 from dynavsr_tpu_torch.train.checkpoint import load_network, load_pretrained, save_network
+from dynavsr_tpu_torch.train.meta import MetaConfig, make_meta_train_step
 from dynavsr_tpu_torch.train.trainer import (
     TrainerConfig,
     make_optimizer,
@@ -36,7 +44,8 @@ from dynavsr_tpu_torch.train.trainer import (
     make_train_step,
 )
 
-__all__ = ["VideoBaseModel", "create_model", "trainer_config_from_opt"]
+__all__ = ["VideoBaseModel", "MetaModel", "DownscalerModel", "create_model",
+           "trainer_config_from_opt"]
 
 
 def trainer_config_from_opt(opt: Mapping) -> TrainerConfig:
@@ -200,15 +209,88 @@ class VideoBaseModel:
         return infer
 
 
+def _to_device(data: Mapping, keys, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(data[k], dtype=torch.float32, device=device)
+            for k in keys if k in data}
+
+
+class MetaModel(VideoBaseModel):
+    """DynaVSR meta-trainer (Algorithm 1) with VideoBaseModel's surface.
+    The `train` block's maml_lr_alpha, maml_adapt_iter, first_order and
+    pixel_weight set MetaConfig; the fed batch carries SLR, LR, LR_center
+    and HR_center (cli/train.synthesize_meta_batch).
+
+    Second order runs only where the port has its kernels: an EDVR net in
+    bf16, or a TOF / DUF net with first_order false, raises (ROADMAP A.7)
+    rather than train to first order silently."""
+
+    def __init__(self, opt: Mapping, device=None):
+        super().__init__(opt, device)
+        t = opt.get("train") or {}
+        self.meta_cfg = MetaConfig(
+            inner_lr=t.get("maml_lr_alpha") or 1e-5,
+            inner_steps=t.get("maml_adapt_iter") or 1,
+            first_order=bool(t.get("first_order", False)),
+            pixel_weight=t.get("pixel_weight") or 1.0)
+        net = opt.get("network_G") or {}
+        if net.get("which_model_G") == "EDVR" and net.get("dtype") not in (None, "float32"):
+            raise NotImplementedError(
+                f"meta-training EDVR in {net.get('dtype')}: the DCN's second-order kernels take "
+                "float32 (bf16 second order is ROADMAP A.7)")
+        if self.netG.arch in ("TOF", "DUF") and not self.meta_cfg.first_order:
+            raise NotImplementedError(
+                f"second-order meta-training of {self.netG.arch} needs "
+                f"{'the warp' if self.netG.arch == 'TOF' else 'the dynamic filter'}'s double "
+                "backward, which is ROADMAP A.7; set train.first_order: true for FOMAML")
+        self._meta_step = None
+
+    def feed_data(self, data: Mapping, need_GT: bool = True) -> None:
+        """Tensors or numpy arrays (NHWC) -> float32 tensors on the device."""
+        self._batch = _to_device(data, ("SLR", "LR", "LR_center", "HR_center", "LQs"),
+                                 self.device)
+
+    def optimize_parameters(self, step: Optional[int] = None) -> None:
+        if self.optimizer is None:
+            raise RuntimeError("the model was not built for training (opt['is_train'])")
+        if self._meta_step is None:
+            self._meta_step = make_meta_train_step(
+                self.netG, self.meta_cfg, self.optimizer, self.sched, self.cfg.grad_clip,
+                apply_fn=make_model_apply(self.netG.arch, self.scale))
+        metrics = self._meta_step(self._batch, self.step)
+        self.step += 1
+        self.log = {k: float(v) for k, v in metrics.items()}
+
+
+class DownscalerModel(VideoBaseModel):
+    """MFDN / SFDN trainer: the fed batch's LR windows are the input and
+    its SLR windows the target (cli/train.synthesize_downscaler_batch:
+    LR = (HR * k) ds, SLR = (LR * k) ds). An MFDN block without `nframes`
+    takes the training windows' N_frames (JAX's MFDN infers its input
+    channels from the batch)."""
+
+    def __init__(self, opt: Mapping, device=None):
+        net = opt.get("network_G") or {}
+        frames = ((opt.get("datasets") or {}).get("train") or {}).get("N_frames")
+        if net.get("which_model_G") == "MFDN" and net.get("nframes") is None and frames:
+            opt = copy.copy(opt)
+            opt["network_G"] = {**net, "nframes": frames}
+        super().__init__(opt, device)
+
+    def feed_data(self, data: Mapping, need_GT: bool = True) -> None:
+        self._batch = {
+            "LQs": torch.as_tensor(data["LR"] if "LR" in data else data["LQs"],
+                                   dtype=torch.float32, device=self.device),
+            "GT": torch.as_tensor(data["SLR"] if "SLR" in data else data["GT"],
+                                  dtype=torch.float32, device=self.device)}
+
+
 def create_model(opt: Mapping, device=None) -> VideoBaseModel:
     """`opt['model']` dispatch (default video_base)."""
     which = opt.get("model") or "video_base"
     if which in ("video_base", "VideoSR_base", "sr"):
         return VideoBaseModel(opt, device)
-    if which in ("downscaler", "estimator"):
-        raise NotImplementedError(
-            f"Model [{which}] trains the downscaler; that trainer comes with ROADMAP A.4")
     if which in ("video_meta", "meta", "dynavsr"):
-        raise NotImplementedError(
-            f"Model [{which}] is meta-training; that trainer comes with ROADMAP A.5")
+        return MetaModel(opt, device)
+    if which in ("downscaler", "estimator"):
+        return DownscalerModel(opt, device)
     raise NotImplementedError(f"Model [{which}] not recognized.")

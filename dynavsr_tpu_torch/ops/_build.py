@@ -24,8 +24,9 @@ __all__ = ["SOURCES", "build", "load", "lib_path", "stream", "raise_if",
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("dcn_fwd", "dcn_bwd", "warp_fwd", "warp_bwd", "duf_fwd", "duf_bwd")
+SOURCES = ("dcn_fwd", "dcn_bwd", "dcn_tangent", "warp_fwd", "warp_bwd", "duf_fwd", "duf_bwd")
 _HEADERS = {"dcn_fwd": ("dcn_common.cuh",), "dcn_bwd": ("dcn_common.cuh",),
+            "dcn_tangent": ("dcn_common.cuh",),
             "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",),
             "duf_fwd": ("duf_common.cuh",), "duf_bwd": ("duf_common.cuh",)}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +40,9 @@ _SIGNATURES = {
     "dcn_fwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "dcn_bwd_data": [_VP] * 9 + [_I] * 7 + [_VP],
     "dcn_bwd_weight": [_VP] * 6 + [_I] * 7 + [_VP],
+    "dcn_fwd_tangent": [_VP] * 6 + [_I] * 6 + [_VP],
+    "dcn_bwd_weight_tangent": [_VP] * 6 + [_I] * 6 + [_VP],
+    "dcn_bwd_data_tangent": [_VP] * 9 + [_I] * 6 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
     "duf_fwd": [_VP] * 3 + [_I] * 6 + [_VP],
@@ -114,15 +118,14 @@ def raise_if(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def refuse_double_backward(kernels: str) -> None:
+def refuse_double_backward(kernels: str, what: str) -> None:
     """Raise inside an autograd `backward` that runs the kernels `kernels`
     when the caller asked for `create_graph=True` (grad mode is on there
     exactly then). The kernels fill their gradients through ctypes, so
-    those gradients carry no graph, and a second-order gradient would
-    silently lose every term through them."""
+    those gradients carry no graph, and a higher-order gradient would
+    silently lose every term through them. `what` says which derivative
+    is missing and where it is planned."""
     if torch.is_grad_enabled():
         raise RuntimeError(
             f"a double backward (create_graph=True) through the CUDA kernels {kernels} is "
-            "not implemented: their second-order terms would be dropped. Meta-training "
-            "chooses between double-backward kernels and running second-order steps "
-            "through the plain ops (ROADMAP A.5).")
+            f"not implemented: their second-order terms would be dropped. {what}")

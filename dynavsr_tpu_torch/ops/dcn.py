@@ -6,9 +6,18 @@ kernels of csrc/ — K1 `dcn_fwd`, K2 `dcn_bwd_data`, K3 `dcn_bwd_weight` —
 through `DeformConv2dFunction`; a CPU tensor always goes to the plain
 version (ops/dcn_ref.py). Nothing falls back from one to the other.
 
+Second order (meta-training's grad of a gradient, fp32): the backward runs
+K2 and K3 through `DcnBwdDataFunction` and `DcnBwdWeightFunction`, whose
+own backward is K1-K3 again on other inputs plus the terms along the
+offset cotangent, K8 `dcn_fwd_tangent`, K9 `dcn_bwd_weight_tangent` and K10
+`dcn_bwd_data_tangent` (csrc/dcn_tangent.cu). A first-order backward
+launches K2 and K3 once each, as before; a third backward raises.
+
 Each launcher adds one to its module-level count where it launches its
-kernel (`fwd_launches`, `bwd_data_launches`, `bwd_weight_launches`), so a
-run can show that its path went through the kernels.
+kernel (`fwd_launches`, `bwd_data_launches`, `bwd_weight_launches`,
+`fwd_tangent_launches`, `bwd_weight_tangent_launches`,
+`bwd_data_tangent_launches`), so a run can show that its path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -20,28 +29,37 @@ import torch
 from dynavsr_tpu_torch.ops import _build
 from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
 
-__all__ = ["deform_conv2d", "DeformConv2dFunction", "dcn_fwd", "dcn_bwd_data",
-           "dcn_bwd_weight", "launch_counts", "reset_launch_counts"]
+__all__ = ["deform_conv2d", "DeformConv2dFunction", "DcnBwdDataFunction",
+           "DcnBwdWeightFunction", "dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight",
+           "dcn_fwd_tangent", "dcn_bwd_weight_tangent", "dcn_bwd_data_tangent",
+           "launch_counts", "reset_launch_counts"]
 
 fwd_launches = 0
 bwd_data_launches = 0
 bwd_weight_launches = 0
+fwd_tangent_launches = 0
+bwd_weight_tangent_launches = 0
+bwd_data_tangent_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def launch_counts() -> dict:
     return {"dcn_fwd": fwd_launches, "dcn_bwd_data": bwd_data_launches,
-            "dcn_bwd_weight": bwd_weight_launches}
+            "dcn_bwd_weight": bwd_weight_launches, "dcn_fwd_tangent": fwd_tangent_launches,
+            "dcn_bwd_weight_tangent": bwd_weight_tangent_launches,
+            "dcn_bwd_data_tangent": bwd_data_tangent_launches}
 
 
 def reset_launch_counts() -> None:
     global fwd_launches, bwd_data_launches, bwd_weight_launches
+    global fwd_tangent_launches, bwd_weight_tangent_launches, bwd_data_tangent_launches
     fwd_launches = bwd_data_launches = bwd_weight_launches = 0
+    fwd_tangent_launches = bwd_weight_tangent_launches = bwd_data_tangent_launches = 0
 
 
 def _check(x, offset, mask, gd: int, cout: int, weight=None, bias=None, grad_out=None,
-           x_channels_last: bool = False):
+           x_channels_last: bool = False, coff=None):
     """Raise on anything the kernels do not take. x is NCHW-contiguous, or
     with `x_channels_last` contiguous in torch.channels_last (the layout
     K1 gathers from and K2 and K3 read)."""
@@ -56,7 +74,8 @@ def _check(x, offset, mask, gd: int, cout: int, weight=None, bias=None, grad_out
         raise ValueError("tensor too large for the kernels' 32-bit pixel indexing")
     want = {"x": (x, (b, c, h, w)), "offset": (offset, (b, 2 * gd * 9, h, w)),
             "mask": (mask, (b, gd * 9, h, w)), "weight": (weight, (cout, c, 3, 3)),
-            "bias": (bias, (cout,)), "grad_out": (grad_out, (b, cout, h, w))}
+            "bias": (bias, (cout,)), "grad_out": (grad_out, (b, cout, h, w)),
+            "coff": (coff, (b, 2 * gd * 9, h, w))}
     for name, (t, shape) in want.items():
         if t is None:
             continue
@@ -161,33 +180,230 @@ def dcn_bwd_weight(x, offset, mask, grad_out, deformable_groups: int) -> torch.T
     return gw
 
 
+_SECOND_ORDER = "K1-K3, K8-K10 (the DCN's second order)"
+
+
+def _tangent_args(x, offset, mask, coff, gd: int, cout: int, name: str, **tensors):
+    """Checked inputs of K8-K10: x channels-last (a library copy when it is
+    not; the autograd passes K1's), the rest contiguous; fp32 only."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{name} takes float32 (the meta configs' dtype); a bf16 second order through the "
+            "DCN is ROADMAP A.7")
+    x = x.contiguous(memory_format=torch.channels_last)
+    coff = coff.contiguous()
+    tensors = {k: v.contiguous() for k, v in tensors.items()}
+    _check(x, offset, mask, gd, cout, x_channels_last=True, coff=coff, **tensors)
+    return x, coff, tensors
+
+
+def dcn_fwd_tangent(x, offset, mask, weight, coff, deformable_groups: int) -> torch.Tensor:
+    """K8: W . (m x the derivative of the bilinear sample along coff), (B,
+    Cout, H, W), no bias, on fp32 CUDA tensors."""
+    global fwd_tangent_launches
+    b, c, h, w = x.shape
+    cout = weight.shape[0]
+    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
+                               "K8 dcn_fwd_tangent", weight=weight)
+    wt = t["weight"].permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    rc = _build.load("dcn_tangent").dcn_fwd_tangent(
+        x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), b, c, h, w, cout, deformable_groups, _build.stream(x))
+    _build.raise_if(rc, "dcn_fwd_tangent")
+    fwd_tangent_launches += 1
+    return out
+
+
+def dcn_bwd_weight_tangent(x, offset, mask, grad_out, coff, deformable_groups: int
+                           ) -> torch.Tensor:
+    """K9: sum over pixels of grad_out (x) the tangent columns, (Cout, C, 3,
+    3), on fp32 CUDA tensors."""
+    global bwd_weight_tangent_launches
+    b, c, h, w = x.shape
+    cout = grad_out.shape[1]
+    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
+                               "K9 dcn_bwd_weight_tangent", grad_out=grad_out)
+    gw = torch.empty((cout, c, 3, 3), dtype=x.dtype, device=x.device)
+    rc = _build.load("dcn_tangent").dcn_bwd_weight_tangent(
+        x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), t["grad_out"].data_ptr(),
+        gw.data_ptr(), b, c, h, w, cout, deformable_groups, _build.stream(x))
+    _build.raise_if(rc, "dcn_bwd_weight_tangent")
+    bwd_weight_tangent_launches += 1
+    return gw
+
+
+def dcn_bwd_data_tangent(x, offset, mask, weight, grad_out, coff, deformable_groups: int):
+    """K10: the gradient of <W^T . grad_out, tangent columns> with respect
+    to (x, offset, mask), on fp32 CUDA tensors; grad x comes back NCHW-shaped
+    with channels-last strides, grad mask None without a mask."""
+    global bwd_data_tangent_launches
+    b, c, h, w = x.shape
+    cout = weight.shape[0]
+    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
+                               "K10 dcn_bwd_data_tangent", weight=weight, grad_out=grad_out)
+    wt = t["weight"].permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
+    gx = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+    goff = torch.empty_like(offset)
+    gmask = None if mask is None else torch.empty_like(mask)
+    rc = _build.load("dcn_tangent").dcn_bwd_data_tangent(
+        x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), wt.data_ptr(),
+        t["grad_out"].data_ptr(), gx.data_ptr(), goff.data_ptr(), _ptr(gmask), b, c, h, w,
+        cout, deformable_groups, _build.stream(x))
+    _build.raise_if(rc, "dcn_bwd_data_tangent")
+    bwd_data_tangent_launches += 1
+    return gx.permute(0, 3, 1, 2), goff, gmask
+
+
+def _cotangents(*cots):
+    """The cotangents with None for each that is absent or all zero (one
+    device sync for all of them)."""
+    present = [i for i, t in enumerate(cots) if t is not None]
+    if not present:
+        return cots
+    nonzero = torch.stack([cots[i].any() for i in present]).tolist()
+    out = list(cots)
+    for i, nz in zip(present, nonzero):
+        if not nz:
+            out[i] = None
+    return out
+
+
+def _acc(total, term):
+    return term if total is None else total + term
+
+
 class DeformConv2dFunction(torch.autograd.Function):
     """Forward K1; backward K2 (x, offset, mask) and K3 (weight), which
-    read the channels-last copy of x that K1 made (saved in place of x);
-    the bias gradient is a plain sum of grad_out. First order only: a
-    double backward raises (`_build.refuse_double_backward`)."""
+    read the channels-last copy of x that K1 made, through
+    DcnBwdDataFunction and DcnBwdWeightFunction so that a
+    create_graph=True backward records them (meta-training's second
+    order); the bias gradient is a plain sum of grad_out. x itself is saved
+    too: a second-order gradient reaches x through it."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, deformable_groups):
         ctx.gd = deformable_groups
         ctx.has_bias = bias is not None
         out, x_cl = _fwd(x, offset, mask, weight, bias, deformable_groups)
-        ctx.save_for_backward(x_cl, offset, mask, weight)
+        ctx.save_for_backward(x, x_cl, offset, mask, weight)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        _build.refuse_double_backward("K2 dcn_bwd_data / K3 dcn_bwd_weight")
-        x, offset, mask, weight = ctx.saved_tensors
+        x, x_cl, offset, mask, weight = ctx.saved_tensors
         need = ctx.needs_input_grad
         gx = goff = gmask = gw = gb = None
         if need[0] or need[1] or need[2]:
-            gx, goff, gmask = dcn_bwd_data(x, offset, mask, weight, grad_out, ctx.gd)
+            gx, goff, gmask = DcnBwdDataFunction.apply(x, offset, mask, weight, grad_out,
+                                                       ctx.gd, x_cl)
         if need[3]:
-            gw = dcn_bwd_weight(x, offset, mask, grad_out, ctx.gd)
+            gw = DcnBwdWeightFunction.apply(x, offset, mask, grad_out, ctx.gd, x_cl)
         if ctx.has_bias and need[4]:
             gb = grad_out.sum((0, 2, 3))
         return gx, goff, gmask, gw, gb, None
+
+
+class DcnBwdDataFunction(torch.autograd.Function):
+    """K2 as a function of (x, offset, mask, weight, grad_out); x_cl is x
+    channels-last (K1's copy), the kernels' operand. Its backward, the
+    DCN's second order along the cotangents (Cx, Coff, Cm) of K2's three
+    outputs:
+      grad_out <- K1(Cx, W) + K1(x, mask=Cm, W) + K8(x, W, Coff)
+      weight   <- K3(Cx, grad_out) + K3(x, mask=Cm, grad_out) + K9(x, grad_out, Coff)
+      x        <- K2(x, mask=Cm).gx + K10.gx
+      offset   <- K2(Cx).goff + K2(x, mask=Cm).goff + K10.goff
+      mask     <- K2(Cx).gmask + K10.gmask
+    (every K1-K3 at the same offset, mask m unless stated). A cotangent
+    that is None or all zero skips its launches. A third backward raises."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, grad_out, deformable_groups, x_cl):
+        ctx.gd = deformable_groups
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x_cl, offset, mask, weight, grad_out)
+        return dcn_bwd_data(x_cl, offset, mask, weight, grad_out, deformable_groups)
+
+    @staticmethod
+    def backward(ctx, cx, coff, cm):
+        _build.refuse_double_backward(_SECOND_ORDER, "A third derivative of the DCN is not "
+                                      "planned.")
+        x_cl, offset, mask, weight, go = ctx.saved_tensors
+        need, gd = ctx.needs_input_grad, ctx.gd
+        cx, coff, cm = _cotangents(cx, coff, None if mask is None else cm)
+        if x_cl.dtype != torch.float32 and any(t is not None for t in (cx, coff, cm)):
+            raise NotImplementedError("the DCN's second order takes float32; bf16 is "
+                                      "ROADMAP A.7")
+        weight = weight.contiguous()
+        gx = goff = gmask = gw = ggo = None
+        if cx is not None:
+            cx = cx.contiguous()
+            if need[4]:
+                ggo = _acc(ggo, dcn_fwd(cx, offset, mask, weight, None, gd))
+            if need[3]:
+                gw = _acc(gw, dcn_bwd_weight(cx, offset, mask, go, gd))
+            if need[1] or need[2]:
+                _, t_off, t_mask = dcn_bwd_data(cx, offset, mask, weight, go, gd)
+                goff, gmask = _acc(goff, t_off), _acc(gmask, t_mask)
+        if cm is not None:
+            cm = cm.contiguous()
+            if need[4]:
+                ggo = _acc(ggo, dcn_fwd(x_cl, offset, cm, weight, None, gd))
+            if need[3]:
+                gw = _acc(gw, dcn_bwd_weight(x_cl, offset, cm, go, gd))
+            if need[0] or need[1]:
+                t_x, t_off, _ = dcn_bwd_data(x_cl, offset, cm, weight, go, gd)
+                gx, goff = _acc(gx, t_x), _acc(goff, t_off)
+        if coff is not None:
+            if need[4]:
+                ggo = _acc(ggo, dcn_fwd_tangent(x_cl, offset, mask, weight, coff, gd))
+            if need[3]:
+                gw = _acc(gw, dcn_bwd_weight_tangent(x_cl, offset, mask, go, coff, gd))
+            if need[0] or need[1] or need[2]:
+                t_x, t_off, t_mask = dcn_bwd_data_tangent(x_cl, offset, mask, weight, go, coff,
+                                                          gd)
+                gx, goff = _acc(gx, t_x), _acc(goff, t_off)
+                if t_mask is not None:
+                    gmask = _acc(gmask, t_mask)
+        return (gx if need[0] else None, goff if need[1] else None,
+                gmask if need[2] else None, gw, ggo, None, None)
+
+
+class DcnBwdWeightFunction(torch.autograd.Function):
+    """K3 as a function of (x, offset, mask, grad_out); x_cl as in
+    DcnBwdDataFunction. Its backward along the cotangent CW of grad weight:
+      grad_out            <- K1(x, W=CW), no bias
+      (x, offset, mask)   <- K2(x, W=CW, grad_out)
+    A cotangent that is None or all zero skips its launches. A third
+    backward raises."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, grad_out, deformable_groups, x_cl):
+        ctx.gd = deformable_groups
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x_cl, offset, mask, grad_out)
+        return dcn_bwd_weight(x_cl, offset, mask, grad_out, deformable_groups)
+
+    @staticmethod
+    def backward(ctx, cw):
+        _build.refuse_double_backward(_SECOND_ORDER, "A third derivative of the DCN is not "
+                                      "planned.")
+        x_cl, offset, mask, go = ctx.saved_tensors
+        need, gd = ctx.needs_input_grad, ctx.gd
+        (cw,) = _cotangents(cw)
+        if cw is None:
+            return None, None, None, None, None, None
+        if x_cl.dtype != torch.float32:
+            raise NotImplementedError("the DCN's second order takes float32; bf16 is "
+                                      "ROADMAP A.7")
+        cw = cw.contiguous()
+        gx = goff = gmask = ggo = None
+        if need[3]:
+            ggo = dcn_fwd(x_cl, offset, mask, cw, None, gd)
+        if need[0] or need[1] or need[2]:
+            gx, goff, gmask = dcn_bwd_data(x_cl, offset, mask, cw, go, gd)
+        return (gx if need[0] else None, goff if need[1] else None,
+                gmask if need[2] else None, ggo, None, None)
 
 
 def deform_conv2d(

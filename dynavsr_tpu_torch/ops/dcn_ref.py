@@ -19,6 +19,23 @@ it), while grad weight = sum_p grad_out * round_bf16(columns) takes the
 rounded ones (K3's function, and JAX's, whose weight gradient sees its cast
 columns). Its autograd is the CPU backward and the oracle the CUDA kernels
 (ops/dcn.py) are held against.
+
+The second order (3x3, stride 1, padding 1, fp32): a double backward of the
+DCN needs, besides K1-K3 on other inputs, the terms along a cotangent
+`coff` of the offsets. With the tangent columns
+
+  tcol[b,c,k,p] = m * D_coff bilinear(x[b,c], pos) = m * sum_corners
+                  x[corner] * (coff_y * dw/dy + coff_x * dw/dx)
+
+`dcn_fwd_tangent_ref` is W . tcol (K8), `dcn_bwd_weight_tangent_ref` is
+grad_out (x) tcol (K9), and `dcn_bwd_data_tangent_ref` is the gradient of
+<gc, tcol>, gc = W^T . grad_out, with respect to x, offset and mask (K10):
+x gets gc * m * (coff . dw/dpos) scattered to each corner; the offsets get
+gc * m * h * (coff_x, coff_y), h = x00 - x01 - x10 + x11 being the only
+nonzero second derivative of the bilinear sample (d2/dy dx); the mask gets
+sum_c gc * D_coff bilinear(x). They are explicit formulas, for the tests
+and for holding the kernels on the card; the CPU path differentiates
+`deform_conv2d_ref` itself.
 """
 
 from __future__ import annotations
@@ -27,7 +44,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["deform_conv2d_ref"]
+__all__ = ["deform_conv2d_ref", "dcn_fwd_tangent_ref", "dcn_bwd_weight_tangent_ref",
+           "dcn_bwd_data_tangent_ref"]
 
 
 def _out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
@@ -105,3 +123,98 @@ def deform_conv2d_ref(
     if bias is not None:
         out = out + bias.to(f32).view(1, -1, 1)
     return out.view(b, cout, ho, wo).to(x.dtype)
+
+
+# The four bilinear corners: (dy, dx) from (y0, x0), the signs of d w / dy
+# and d w / dx, and the corner's sign in h = x00 - x01 - x10 + x11.
+_CORNERS = ((0, 0, -1.0, -1.0, 1.0), (0, 1, -1.0, 1.0, -1.0), (1, 0, 1.0, -1.0, -1.0),
+            (1, 1, 1.0, 1.0, 1.0))
+
+
+def _tangent_corners(x, offset, coff, gd):
+    """Per corner of every (pixel, tap, group) sample of a 3x3 / stride 1 /
+    padding 1 DCN: (flat index into the (H*W) plane, clamped; its values
+    (B, Gd, Cg, 9, P) x inside; its tangent weight coff . dw/dpos
+    (B, Gd, 1, 9, P) x inside; its sign in h x inside)."""
+    b, c, h, w = x.shape
+    f32, dev, k = torch.float32, x.device, 9
+    p = h * w
+    oy = torch.arange(h, dtype=f32, device=dev).view(h, 1).expand(h, w).reshape(p)
+    ox = torch.arange(w, dtype=f32, device=dev).view(1, w).expand(h, w).reshape(p)
+    ty = torch.arange(k, device=dev).div(3, rounding_mode="floor").to(f32) - 1.0
+    tx = torch.arange(k, device=dev).remainder(3).to(f32) - 1.0
+    off = offset.to(f32).view(b, gd, k, 2, p)
+    cof = coff.to(f32).view(b, gd, k, 2, p)
+    ys = oy.view(1, 1, 1, p) + ty.view(1, 1, k, 1) + off[:, :, :, 0]
+    xs = ox.view(1, 1, 1, p) + tx.view(1, 1, k, 1) + off[:, :, :, 1]
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    ly, lx = ys - y0, xs - x0
+    cy, cx = cof[:, :, :, 0], cof[:, :, :, 1]
+    imgs = x.to(f32).reshape(b, gd, c // gd, p)
+    out = []
+    for dy, dx, sy, sx, sh in _CORNERS:
+        yi, xi = y0 + dy, x0 + dx
+        inside = ((yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)).to(f32)
+        wy = ly if dy else 1.0 - ly
+        wx = lx if dx else 1.0 - lx
+        tw = (cy * sy * wx + cx * sx * wy) * inside
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+        vals = torch.gather(imgs, 3, idx.view(b, gd, 1, k * p).expand(-1, -1, c // gd, -1))
+        vals = vals.view(b, gd, c // gd, k, p) * inside.view(b, gd, 1, k, p)
+        out.append((idx, vals, tw.view(b, gd, 1, k, p), sh * inside.view(b, gd, 1, k, p)))
+    return out
+
+
+def _mask5(mask, b, gd, p):
+    return None if mask is None else mask.to(torch.float32).view(b, gd, 1, 9, p)
+
+
+def _tangent_cols(x, offset, mask, coff, gd):
+    """tcol (B, C, 9, P): m x the derivative of the bilinear sample along coff."""
+    b, c, h, w = x.shape
+    tcol = sum(vals * tw for _, vals, tw, _ in _tangent_corners(x, offset, coff, gd))
+    m = _mask5(mask, b, gd, h * w)
+    if m is not None:
+        tcol = tcol * m
+    return tcol.reshape(b, c, 9, h * w)
+
+
+def dcn_fwd_tangent_ref(x, offset, mask, weight, coff, deformable_groups: int = 1):
+    """K8's function: W . tcol, (B, Cout, H, W), no bias."""
+    b, c, h, w = x.shape
+    tcol = _tangent_cols(x, offset, mask, coff, deformable_groups)
+    out = torch.einsum("bckp,ock->bop", tcol, weight.to(torch.float32).reshape(-1, c, 9))
+    return out.reshape(b, -1, h, w).to(x.dtype)
+
+
+def dcn_bwd_weight_tangent_ref(x, offset, mask, grad_out, coff, deformable_groups: int = 1):
+    """K9's function: sum over pixels of grad_out (x) tcol, (Cout, C, 3, 3)."""
+    b, c, h, w = x.shape
+    tcol = _tangent_cols(x, offset, mask, coff, deformable_groups)
+    go = grad_out.to(torch.float32).reshape(b, -1, h * w)
+    return torch.einsum("bckp,bop->ock", tcol, go).reshape(-1, c, 3, 3).to(x.dtype)
+
+
+def dcn_bwd_data_tangent_ref(x, offset, mask, weight, grad_out, coff,
+                             deformable_groups: int = 1):
+    """K10's function: the gradient of <W^T . grad_out, tcol> with respect
+    to (x, offset, mask); grad mask is None when mask is None."""
+    b, c, h, w = x.shape
+    gd, p, f32 = deformable_groups, h * w, torch.float32
+    gc = torch.einsum("ock,bop->bckp", weight.to(f32).reshape(-1, c, 9),
+                      grad_out.to(f32).reshape(b, -1, p)).reshape(b, gd, c // gd, 9, p)
+    m = _mask5(mask, b, gd, p)
+    gcm = gc if m is None else gc * m
+    cof = coff.to(f32).view(b, gd, 9, 2, p)
+    gx = torch.zeros(b, gd, c // gd, p, dtype=f32, device=x.device)
+    hsum, dsum = 0.0, 0.0
+    for idx, vals, tw, sh in _tangent_corners(x, offset, coff, gd):
+        src = (gcm * tw).reshape(b, gd, c // gd, 9 * p)
+        gx.scatter_add_(3, idx.view(b, gd, 1, 9 * p).expand_as(src), src)
+        hsum = hsum + vals * sh
+        dsum = dsum + vals * tw
+    hterm = (gcm * hsum).sum(2)  # (B, Gd, 9, P)
+    goff = torch.stack([hterm * cof[:, :, :, 1], hterm * cof[:, :, :, 0]], dim=3)
+    gmask = None if mask is None else (gc * dsum).sum(2).reshape(b, gd * 9, h, w).to(x.dtype)
+    return (gx.reshape(b, c, h, w).to(x.dtype), goff.reshape(b, 2 * gd * 9, h, w).to(x.dtype),
+            gmask)

@@ -125,7 +125,9 @@ class DufFilterFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        _build.refuse_double_backward("K7 duf_bwd")
+        _build.refuse_double_backward(
+            "K7 duf_bwd", "DUF's meta-training needs a double backward composed from K6 / K7 "
+            "(ROADMAP A.7).")
         x, filters = ctx.saved_tensors
         gx, gf = duf_bwd(x, filters, grad_out, need_x=ctx.needs_input_grad[0])
         return gx, gf if ctx.needs_input_grad[1] else None

@@ -110,7 +110,9 @@ class WarpFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        _build.refuse_double_backward("K5 warp_bwd")
+        _build.refuse_double_backward(
+            "K5 warp_bwd", "TOF's meta-training needs a kernel for the warp's second "
+            "derivative in the flow (ROADMAP A.7).")
         x, flow = ctx.saved_tensors
         gx, gflow = warp_bwd(x, flow, grad_out, need_x=ctx.needs_input_grad[0])
         return gx, gflow if ctx.needs_input_grad[1] else None

@@ -1,0 +1,147 @@
+"""MAML-style meta-training, DynaVSR's Algorithm 1 (port of
+dynavsr_tpu/train/meta.py).
+
+Per step:
+  inner:  theta' = theta - alpha * grad_theta L(f_theta(SLR windows), LR centres)
+          (k SGD steps on fast weights; the outer gradient flows through them)
+  outer:  L(f_theta'(LR windows), HR centres) -> one optimizer step on theta.
+
+The fast weights are a dict of tensors run through the module with
+`torch.func.functional_call`. The inner gradient is
+`torch.autograd.grad(..., create_graph=not first_order)`: second order
+differentiates through the inner backward, which on the card is the DCN's
+K1-K3 and K8-K10 (ops/dcn.py). `first_order` detaches the inner gradient
+(FOMAML), as the JAX package's stop_gradient does. `use_remat` runs the
+inner forward under `torch.utils.checkpoint(use_reentrant=False)`: its
+activations are recomputed in the backward instead of kept, as
+jax.checkpoint does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from dynavsr_tpu_torch.train.losses import charbonnier_loss
+from dynavsr_tpu_torch.train.trainer import apply_update
+
+__all__ = ["MetaConfig", "adapted_params", "meta_loss", "make_meta_train_step"]
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class MetaConfig:
+    inner_lr: float = 1e-5
+    inner_steps: int = 1
+    first_order: bool = False
+    pixel_weight: float = 1.0
+    reduction: str = "mean"
+    use_remat: bool = True
+
+
+class _Applied(nn.Module):
+    """`apply_fn(net, x)` as a module, so functional_call can swap the net's
+    parameters under an input convention (models/padding.py)."""
+
+    def __init__(self, net: nn.Module, apply_fn: Optional[Callable]):
+        super().__init__()
+        self.net = net
+        self._apply_fn = apply_fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x) if self._apply_fn is None else self._apply_fn(self.net, x)
+
+
+def _forward(model: nn.Module, apply_fn: Optional[Callable]
+             ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """(params, x) -> the net's output with `params` in place of its own."""
+    applied = _Applied(model, apply_fn)
+
+    def fwd(params: Params, x: torch.Tensor) -> torch.Tensor:
+        return functional_call(applied, {f"net.{k}": v for k, v in params.items()}, (x,))
+
+    return fwd
+
+
+def adapted_params(model: nn.Module, params: Params, slr: torch.Tensor,
+                   lr_center: torch.Tensor, cfg: MetaConfig,
+                   apply_fn: Optional[Callable] = None) -> Tuple[Params, torch.Tensor]:
+    """k inner SGD steps on the (SLR windows -> LR centres) pseudo-task.
+
+    slr (B, N, h/s, w/s, 3); lr_center (B, h, w, 3); params: name ->
+    tensor, as model.named_parameters(). Returns the fast weights and the
+    last inner loss (before its step). apply_fn(net, x) overrides
+    net(x), e.g. a mod-padded forward (models/padding.make_model_apply),
+    since SLR = LR / s is generally not pyramid-divisible."""
+    fwd = _forward(model, apply_fn)
+    names = list(params)
+    loss = None
+    for _ in range(cfg.inner_steps):
+        if cfg.use_remat:
+            pred = checkpoint(fwd, params, slr, use_reentrant=False)
+        else:
+            pred = fwd(params, slr)
+        loss = charbonnier_loss(pred, lr_center, reduction=cfg.reduction)
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    create_graph=not cfg.first_order, allow_unused=True)
+        step = {}
+        for k, g in zip(names, grads):
+            if g is None:  # unused by the forward: a zero gradient, as in JAX
+                step[k] = params[k]
+                continue
+            if cfg.first_order:
+                g = g.detach()
+            step[k] = params[k] - cfg.inner_lr * g
+        params = step
+    return params, loss
+
+
+def meta_loss(model: nn.Module, params: Params, batch: Mapping[str, torch.Tensor],
+              cfg: MetaConfig, apply_fn: Optional[Callable] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(outer loss, last inner loss) of the meta objective at `params`:
+    the adapted weights' Charbonnier loss on (LR windows -> HR centres),
+    times pixel_weight. Its gradient with respect to `params` is the meta
+    gradient (second order unless cfg.first_order)."""
+    fast, inner = adapted_params(model, params, batch["SLR"], batch["LR_center"], cfg,
+                                 apply_fn)
+    pred = _forward(model, apply_fn)(fast, batch["LR"])
+    outer = cfg.pixel_weight * charbonnier_loss(pred, batch["HR_center"],
+                                                reduction=cfg.reduction)
+    return outer, inner
+
+
+def make_meta_train_step(model: nn.Module, cfg: MetaConfig, optimizer: torch.optim.Optimizer,
+                         sched: Callable[[int], float], grad_clip: Optional[float] = None,
+                         apply_fn: Optional[Callable] = None
+                         ) -> Callable[[Mapping[str, torch.Tensor], int], Dict[str, torch.Tensor]]:
+    """step(batch, count) -> metrics, updating `model` and `optimizer` in
+    place; count is the updates made before this one (the lr is
+    sched(count)).
+
+    batch: {'SLR': (B, N, h/s, w/s, 3), 'LR': (B, N, h, w, 3),
+    'LR_center': (B, h, w, 3), 'HR_center': (B, H, W, 3)} on the model's
+    device; the (SLR, LR) pair comes from the degradation pipeline (an
+    estimator's output or a synthetic kernel). apply_fn(net, x) overrides
+    net(x) for both the inner and the outer forward.
+
+    metrics (0-d tensors): l_outer, l_inner and grad_norm (the global norm
+    of the meta gradient, before any clip)."""
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    def step(batch: Mapping[str, torch.Tensor], count: int) -> Dict[str, torch.Tensor]:
+        named = dict(model.named_parameters())
+        params = {k: named[k] for k in names}
+        optimizer.zero_grad(set_to_none=True)
+        outer, inner = meta_loss(model, params, batch, cfg, apply_fn)
+        outer.backward()
+        gnorm = apply_update(optimizer, list(params.values()), sched(count), grad_clip)
+        return {"l_outer": outer.detach(), "l_inner": inner.detach(), "grad_norm": gnorm}
+
+    return step

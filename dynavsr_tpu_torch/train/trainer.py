@@ -32,7 +32,8 @@ from dynavsr_tpu_torch.train.schedules import (
     with_warmup,
 )
 
-__all__ = ["TrainerConfig", "make_schedule", "make_optimizer", "make_train_step"]
+__all__ = ["TrainerConfig", "make_schedule", "make_optimizer", "make_train_step",
+           "apply_update"]
 
 
 @dataclasses.dataclass
@@ -75,6 +76,22 @@ def make_optimizer(cfg: TrainerConfig, params: Iterable[nn.Parameter]) -> torch.
     return torch.optim.Adam(params, **kw)
 
 
+def apply_update(optimizer: torch.optim.Optimizer, params, lr: float,
+                 grad_clip: Optional[float]) -> torch.Tensor:
+    """One optimizer step on the gradients the params hold, at `lr`, after
+    optax's clip rule; returns the global norm of the unclipped gradients."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    grads = [p.grad for p in params if p.grad is not None]
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if grad_clip:
+        clip = gnorm >= grad_clip
+        for g in grads:
+            g.copy_(torch.where(clip, g / gnorm * grad_clip, g))
+    optimizer.step()
+    return gnorm
+
+
 def _dcn_offset_hooks(model: nn.Module, out: list) -> list:
     """Forward hooks on every DCNSep's conv_offset_mask that append the mean
     |offset| (its first 2*Gd*9 channels) in fp32 to `out`; the JAX package
@@ -111,9 +128,6 @@ def make_train_step(model: nn.Module, cfg: TrainerConfig, optimizer: torch.optim
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Mapping[str, torch.Tensor], count: int) -> Dict[str, torch.Tensor]:
-        lr = sched(count)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
         model.train()
         offsets: list = []
         handles = _dcn_offset_hooks(model, offsets)
@@ -125,13 +139,7 @@ def make_train_step(model: nn.Module, cfg: TrainerConfig, optimizer: torch.optim
         l_pix = cfg.pixel_weight * cri_pix(pred, batch["GT"])
         optimizer.zero_grad(set_to_none=True)
         l_pix.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        if cfg.grad_clip:
-            clip = gnorm >= cfg.grad_clip
-            for g in grads:
-                g.copy_(torch.where(clip, g / gnorm * cfg.grad_clip, g))
-        optimizer.step()
+        gnorm = apply_update(optimizer, params, sched(count), cfg.grad_clip)
         metrics = {"l_pix": l_pix.detach(), "grad_norm": gnorm}
         if offsets:
             metrics["dcn_offset_absmean"] = torch.stack(offsets).max()

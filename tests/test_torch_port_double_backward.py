@@ -1,10 +1,12 @@
-"""A double backward through the port's kernel Functions raises, on CPU.
+"""Second order through the port's kernel Functions, on CPU.
 
-`DeformConv2dFunction` (K1-K3), `WarpFunction` (K4/K5) and
-`DufFilterFunction` (K6/K7) fill their gradients through ctypes, so those
-gradients carry no graph: a `create_graph=True` gradient through them
-would lose every second-order term that passes through a kernel, with no
-error. Their backward raises instead. Each case takes
+The kernels fill their gradients through ctypes, so those gradients carry
+no graph. `WarpFunction` (K4/K5) and `DufFilterFunction` (K6/K7) raise on a
+`create_graph=True` backward instead of losing every second-order term
+that passes through a kernel. `DeformConv2dFunction` (K1-K3) carries its
+second order through `DcnBwdDataFunction` / `DcnBwdWeightFunction`, whose
+backward is K1-K3 again plus K8-K10 (ops/dcn.py); its third backward
+raises. Each case takes
 `loss = sum(op(theta)^2) + sum(theta^3)`: theta reaches the loss through the
 op and through a plain path, so `torch.autograd.grad(..., inputs=theta)`
 still has an edge to theta when the op's gradient has none (a
@@ -19,8 +21,14 @@ dropped silently).
 - Through `Function.apply`, with the ctypes launchers replaced by stand-ins
   built from the plain versions that, like the kernels, return values
   without a graph: the first-order gradient equals the plain op's (1e-6 of
-  the largest value: the same arithmetic), and `create_graph=True` raises a
-  RuntimeError that names the kernel.
+  the largest value: the same arithmetic). For the warp and the filter,
+  `create_graph=True` raises a RuntimeError that names the kernel. For the
+  DCN, K1-K3 and K8-K10 are replaced (K8-K10 by their explicit formulas,
+  ops/dcn_ref.py), so the grad-of-grad tests the second-order
+  decomposition of ops/dcn.py: it equals plain autograd's within 1e-5 of
+  the largest value (fp32 sums in another order), both with the offsets
+  alone and with every input of the DCN differentiated, with and without
+  a mask; and a third backward raises.
 """
 
 import jax
@@ -34,7 +42,12 @@ from dynavsr_tpu.ops.dcn_fused import deform_conv2d_fused as jax_dcn
 from dynavsr_tpu.ops.grid_sample import flow_warp as jax_flow_warp
 from dynavsr_tpu_torch.ops import dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
-from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
+from dynavsr_tpu_torch.ops.dcn_ref import (
+    dcn_bwd_data_tangent_ref,
+    dcn_bwd_weight_tangent_ref,
+    dcn_fwd_tangent_ref,
+    deform_conv2d_ref,
+)
 from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
 
 B, C, H, W, R, GD = 2, 3, 6, 7, 4, 2
@@ -114,10 +127,12 @@ def _stand_ins(op, monkeypatch):
     """Replace the Function's ctypes launchers by the plain versions, which
     return values without a graph, as the kernels do."""
     def vjp(fn, inputs, need, grad_out):
+        need = [n and t is not None for t, n in zip(inputs, need)]
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(inputs, need)]
             out = fn(*leaves)
-            wrt = [t for t in leaves if t.requires_grad]
+            wrt = [t for t in leaves if t is not None and t.requires_grad]
             grads = iter(torch.autograd.grad(out, wrt, grad_out.detach()))
         return [next(grads) if n else None for n in need]
 
@@ -145,9 +160,20 @@ def _stand_ins(op, monkeypatch):
             w = x.new_zeros(grad_out.shape[1], x.shape[1], 3, 3)  # grad weight is linear
             return vjp(plain(gd), (x, offset, mask, w), (False, False, False, True), grad_out)[3]
 
-        monkeypatch.setattr(dcn, "_fwd", fwd)
+        def detached(fn):
+            def call(*args):
+                with torch.no_grad():
+                    out = fn(*args)
+                return out.detach() if torch.is_tensor(out) else tuple(
+                    None if t is None else t.detach() for t in out)
+            return call
+
+        monkeypatch.setattr(dcn, "_fwd", detached(fwd))
         monkeypatch.setattr(dcn, "dcn_bwd_data", bwd_data)
         monkeypatch.setattr(dcn, "dcn_bwd_weight", bwd_weight)
+        monkeypatch.setattr(dcn, "dcn_fwd_tangent", detached(dcn_fwd_tangent_ref))
+        monkeypatch.setattr(dcn, "dcn_bwd_weight_tangent", detached(dcn_bwd_weight_tangent_ref))
+        monkeypatch.setattr(dcn, "dcn_bwd_data_tangent", detached(dcn_bwd_data_tangent_ref))
 
 
 @pytest.mark.parametrize("op", ["dcn", "warp", "duf"])
@@ -160,8 +186,54 @@ def test_double_backward_through_the_kernel_function_raises(op, monkeypatch):
     (want,) = torch.autograd.grad(_loss(case["plain"](tr), tr), tr)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
 
+    if op == "dcn":  # second order through K1-K3 and K8-K10; the third raises
+        got = _grad_of_grad(case["function"], case["theta"])
+        want = _grad_of_grad(case["plain"], case["theta"])
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+        t = case["theta"].clone().requires_grad_()
+        (g,) = torch.autograd.grad(_loss(case["function"](t), t), t, create_graph=True)
+        with pytest.raises(RuntimeError, match="double backward.*K8-K10.*second-order"):
+            torch.autograd.grad(g.sum(), t, create_graph=True)
+        return
     t = case["theta"].clone().requires_grad_()
     loss = _loss(case["function"](t), t)
-    kernel = {"dcn": "K2", "warp": "K5", "duf": "K7"}[op]
+    kernel = {"warp": "K5", "duf": "K7"}[op]
     with pytest.raises(RuntimeError, match=f"double backward.*{kernel}.*second-order"):
         torch.autograd.grad(loss, t, create_graph=True)
+
+
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
+def test_dcn_second_order_in_every_input_matches_plain_autograd(with_mask, monkeypatch):
+    """Every input of the DCN differentiated (x, offset, mask, weight,
+    bias): g = dL/d(inputs) with create_graph, then the gradient of
+    sum_i <r_i, g_i> for fixed random r_i, through Function.apply with
+    K1-K3 and K8-K10 replaced by their plain versions, against plain
+    autograd through deform_conv2d_ref; 1e-5 of the largest value each.
+    The launch counts of the stand-ins are not kept: this is the
+    arithmetic of the decomposition."""
+    _stand_ins("dcn", monkeypatch)
+    rng = np.random.default_rng(5)
+    gd, c, cout = 2, 4, 3
+    arrays = [rng.standard_normal((B, c, H, W)),
+              rng.standard_normal((B, 2 * gd * 9, H, W)) * 1.5 + 0.37,
+              rng.random((B, gd * 9, H, W)), rng.standard_normal((cout, c, 3, 3)) * 0.3,
+              rng.standard_normal(cout)]
+    inputs = [torch.tensor(a, dtype=torch.float32) for a in arrays]
+    if not with_mask:
+        inputs[2] = None
+    rs = [None if t is None else torch.tensor(rng.standard_normal(t.shape), dtype=torch.float32)
+          for t in inputs]
+
+    def grad_of_grad(fn):
+        leaves = [None if t is None else t.clone().requires_grad_() for t in inputs]
+        wrt = [t for t in leaves if t is not None]
+        out = fn(*leaves)
+        gs = torch.autograd.grad((out ** 2).sum() + (out ** 3).mean(), wrt, create_graph=True)
+        inner = sum((g * r).sum() for g, r in zip(gs, [r for r in rs if r is not None]))
+        return torch.autograd.grad(inner, wrt)
+
+    got = grad_of_grad(lambda x, o, m, w, b: dcn.DeformConv2dFunction.apply(x, o, m, w, b, gd))
+    want = grad_of_grad(lambda x, o, m, w, b: deform_conv2d_ref(x, o, m, w, b,
+                                                                deformable_groups=gd))
+    for name, g, w in zip(("x", "offset", "mask", "weight", "bias"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()), msg=name)

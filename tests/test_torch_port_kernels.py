@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 DCN's K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight (ops/dcn_ref.py),
+the terms of its second order along an offset cotangent, K8
+dcn_fwd_tangent, K9 dcn_bwd_weight_tangent and K10 dcn_bwd_data_tangent
+(ops/dcn_ref.py's *_tangent_ref, fp32 only),
 the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py),
 and DUF's dynamic upsampling filter K6 duf_fwd and K7 duf_bwd
 (ops/duf_filter_ref.py).
@@ -33,7 +36,12 @@ import torch
 
 from dynavsr_tpu_torch.ops import dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
-from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
+from dynavsr_tpu_torch.ops.dcn_ref import (
+    dcn_bwd_data_tangent_ref,
+    dcn_bwd_weight_tangent_ref,
+    dcn_fwd_tangent_ref,
+    deform_conv2d_ref,
+)
 from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
 
 
@@ -177,6 +185,12 @@ def test_kernels_match_plain_at_the_training_shape(cuda, gd, dtype, offsets):
             _close(g, r, 2 ** -8 + 1e-4)
 
 
+# A first-order forward and backward: K1-K3 once each, none of K8-K10.
+FIRST_ORDER_LAUNCHES = {"dcn_fwd": 1, "dcn_bwd_data": 1, "dcn_bwd_weight": 1,
+                        "dcn_fwd_tangent": 0, "dcn_bwd_weight_tangent": 0,
+                        "dcn_bwd_data_tangent": 0}
+
+
 @pytest.mark.gpu
 def test_autograd_goes_through_the_kernels(cuda):
     x, offset, mask, weight, bias, cot = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=0)
@@ -184,7 +198,7 @@ def test_autograd_goes_through_the_kernels(cuda):
     dcn.reset_launch_counts()
     out = dcn.deform_conv2d(*params, deformable_groups=2)
     out.backward(cot)
-    assert dcn.launch_counts() == {"dcn_fwd": 1, "dcn_bwd_data": 1, "dcn_bwd_weight": 1}
+    assert dcn.launch_counts() == FIRST_ORDER_LAUNCHES
     ref_in = [t.detach().clone().requires_grad_() for t in params]
     deform_conv2d_ref(*ref_in, deformable_groups=2).backward(cot)
     for got, want in zip(params, ref_in):
@@ -207,7 +221,7 @@ def test_channels_last_x_gives_the_nchw_result(cuda, dtype):
         dcn.reset_launch_counts()
         out = dcn.deform_conv2d(*params, deformable_groups=8)
         out.backward(cot)
-        assert dcn.launch_counts() == {"dcn_fwd": 1, "dcn_bwd_data": 1, "dcn_bwd_weight": 1}
+        assert dcn.launch_counts() == FIRST_ORDER_LAUNCHES
         runs.append((out.detach(), [t.grad for t in params]))
     assert runs[1][0].is_contiguous()
     assert torch.equal(runs[0][0], runs[1][0])
@@ -459,6 +473,54 @@ def test_duf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         duf_filter.duf_bwd(x, f, cot[:, :5], need_x=True)
 
 
+# The meta inner step's DCN calls (8 windows x 5 frames of SLR 16x16 at the
+# pyramid's three levels, Gd 8) and small edge shapes (C < 8, C = 128, one
+# pixel tile past a tile's end).
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(40, 64, 64, 16, 16), (40, 64, 64, 8, 8), (40, 64, 64, 4, 4),
+                                   (3, 8, 6, 9, 7), (1, 128, 64, 11, 3)],
+                         ids=["meta16", "meta8", "meta4", "small", "wide"])
+@pytest.mark.parametrize("gd", [1, 2, 8])
+@pytest.mark.parametrize("offsets", ["noise", "smooth"])
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
+def test_tangent_kernels_match_plain(cuda, shape, gd, offsets, with_mask):
+    """K8-K10 against their explicit plain formulas, fp32, 1e-4 of the
+    largest reference value (the same products in another order; K9 and
+    K10 sum with atomics). White-noise offsets reach outside the frame;
+    smooth ones (a bilinearly upsampled coarse field of a fraction of a
+    pixel, as trained offsets are) keep most samples inside."""
+    b, c, cout, h, w = shape
+    if c % gd:
+        pytest.skip("channels not divisible by the groups")
+    x, offset, mask, weight, _, cot = _inputs(b, c, cout, h, w, gd, cuda, seed=23)
+    g = torch.Generator(device="cpu").manual_seed(24)
+    if offsets == "smooth":
+        coarse = torch.randn(b, 2 * gd * 9, max(1, h // 4), max(1, w // 4), generator=g) * 0.6
+        offset = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
+                                                 align_corners=False).to(cuda).contiguous()
+    coff = torch.randn(offset.shape, generator=g).to(cuda)
+    if not with_mask:
+        mask = None
+    got = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, gd)
+    _close(got, dcn_fwd_tangent_ref(x, offset, mask, weight, coff, gd), 1e-4)
+    got = dcn.dcn_bwd_weight_tangent(x, offset, mask, cot, coff, gd)
+    _close(got, dcn_bwd_weight_tangent_ref(x, offset, mask, cot, coff, gd), 1e-4)
+    got = dcn.dcn_bwd_data_tangent(x, offset, mask, weight, cot, coff, gd)
+    want = dcn_bwd_data_tangent_ref(x, offset, mask, weight, cot, coff, gd)
+    for gt, wt in zip(got, want):
+        assert (gt is None) == (wt is None)
+        if wt is not None:
+            _close(gt, wt, 1e-4)
+
+
+@pytest.mark.gpu
+def test_tangent_wrappers_refuse_bf16(cuda):
+    x, offset, mask, weight, _, cot = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=3)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        dcn.dcn_fwd_tangent(x.bfloat16(), offset.bfloat16(), mask.bfloat16(),
+                            weight.bfloat16(), offset.bfloat16(), 2)
+
+
 def _second_order_case(op, device):
     """A loss sum(op(theta)^2) + sum(theta^3) through the port's autograd
     Function, with theta the flow (K4/K5), the filters (K6/K7) or the
@@ -476,14 +538,43 @@ def _second_order_case(op, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["dcn", "warp", "duf"])
 def test_double_backward_through_the_kernels_raises(cuda, op):
-    """The kernels' gradients carry no graph, so a create_graph=True
-    gradient through them raises (its second-order terms would be lost);
-    a first-order gradient of the same loss runs."""
+    """K4-K7's gradients carry no graph, so a create_graph=True gradient
+    through them raises (its second-order terms would be lost); a
+    first-order gradient of the same loss runs. The DCN's second order
+    runs through K1-K3 and K8-K10: its grad-of-grad matches plain
+    autograd's (1e-4 of the largest value, fp32 atomics), launching K8-K10
+    once each, and its third backward raises."""
     fn, theta = _second_order_case(op, cuda)
     t = theta.clone().requires_grad_()
     (g,) = torch.autograd.grad((fn(t) ** 2).sum() + (t ** 3).sum(), t)
     assert torch.isfinite(g).all()
     t = theta.clone().requires_grad_()
     loss = (fn(t) ** 2).sum() + (t ** 3).sum()
-    with pytest.raises(RuntimeError, match="double backward.*second-order"):
-        torch.autograd.grad(loss, t, create_graph=True)
+    if op != "dcn":
+        with pytest.raises(RuntimeError, match="double backward.*second-order"):
+            torch.autograd.grad(loss, t, create_graph=True)
+        return
+    x, _, mask, weight, bias, _ = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=7)
+
+    def first(f):
+        tt = theta.clone().requires_grad_()
+        (gg,) = torch.autograd.grad((f(tt) ** 2).sum() + (tt ** 3).sum(), tt, create_graph=True)
+        return tt, gg
+
+    def grad_of_grad(f):
+        tt, gg = first(f)
+        return torch.autograd.grad(gg.sum(), tt)[0]
+
+    dcn.reset_launch_counts()
+    got = grad_of_grad(fn)
+    counts = dcn.launch_counts()
+    want = grad_of_grad(lambda o: deform_conv2d_ref(x, o, mask, weight, bias,
+                                                     deformable_groups=2))
+    _close(got, want, 1e-4)
+    # Only the offsets and grad_out need gradients here: K8 and K10, no K9.
+    assert {k: counts[k] for k in ("dcn_fwd_tangent", "dcn_bwd_weight_tangent",
+                                   "dcn_bwd_data_tangent")} == {
+        "dcn_fwd_tangent": 1, "dcn_bwd_weight_tangent": 0, "dcn_bwd_data_tangent": 1}, counts
+    tt, gg = first(fn)
+    with pytest.raises(RuntimeError, match="double backward.*K8-K10.*second-order"):
+        torch.autograd.grad(gg.sum(), tt, create_graph=True)

@@ -390,11 +390,12 @@ def test_non_strict_load_keeps_the_model_where_shapes_differ(tmp_path):
 
 
 def test_what_the_port_still_refuses_says_why(tmp_path):
-    """Only orbax checkpoint directories, the meta-training dataset modes,
-    the downscaler and meta-training models, multi-process launchers and
-    eval.tile raise, each naming its ROADMAP item and the reason. An LMDB
-    root now reads: a test set over one (raw frames with their .meta, the
-    port's writer) gives JAX's items."""
+    """Only orbax checkpoint directories, second-order meta-training where
+    the port has no double-backward kernels (TOF / DUF, bf16 EDVR),
+    multi-process launchers and eval.tile raise, each naming its ROADMAP
+    item and the reason. An LMDB root now reads: a test set over one (raw
+    frames with their .meta, the port's writer) gives JAX's items; the
+    meta-training dataset modes build MetaVideoDataset."""
     from dynavsr_tpu_torch.cli import train as train_cli
     from dynavsr_tpu_torch.data.lmdb_native import LmdbWriter
 
@@ -415,15 +416,20 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
     for i in range(4):
         np.testing.assert_array_equal(ours[i]["LQs"], theirs[i]["LQs"])
     np.testing.assert_array_equal(ours.clip_frames("clip"), frames[..., ::-1] / np.float32(255))
+    from dynavsr_tpu_torch.data.datasets import MetaVideoDataset
+
     for mode in ("meta", "meta_learner", "MetaREDS", "MetaVimeo"):
-        with pytest.raises(NotImplementedError, match="meta-training.*A.5"):
-            create_dataset({"mode": mode, "dataroot_LQ": str(tmp_path)})
+        assert isinstance(create_dataset({"mode": mode, "dataroot_GT": lmdb, "N_frames": 3}),
+                          MetaVideoDataset)
     with pytest.raises(NotImplementedError, match="not recognized"):
         create_dataset({"mode": "Kinetics", "dataroot_LQ": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="meta-training.*A.5"):
-        create_model({"model": "video_meta", "network_G": {}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="downscaler.*A.4"):
-        create_model({"model": "downscaler", "network_G": {}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="second-order.*TOF.*A.7"):
+        create_model({"model": "video_meta", "network_G": {"which_model_G": "TOF", "nframes": 3},
+                      "train": {"first_order": False}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="bfloat16.*A.7"):
+        create_model({"model": "video_meta", "network_G": {
+            "which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RBs": 1,
+            "back_RBs": 1, "dtype": "bfloat16"}}, device="cpu")
     with pytest.raises(NotImplementedError, match="torch.distributed.*A.6"):
         train_cli.main(["-opt", "unused.yml", "--launcher", "pytorch"])
     with pytest.raises(NotImplementedError, match="eval.tile"):

@@ -188,9 +188,8 @@ def test_vimeo90k_items_match_jax(data, root_kind, listed):
 def test_create_dataset_dispatches_the_training_modes(data):
     opt = _reds_opt(data, "folder")
     assert type(loader.create_dataset(opt)) is datasets.REDSDataset
-    for mode in ("meta", "MetaREDS"):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            loader.create_dataset({**opt, "mode": mode})
+    for mode in ("meta", "MetaREDS"):  # HR windows for meta / downscaler training
+        assert type(loader.create_dataset({**opt, "mode": mode})) is datasets.MetaVideoDataset
 
 
 # ---------------------------------------------------------------- loader
