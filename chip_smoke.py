@@ -6,7 +6,7 @@
 Phases; any failure raises and exits non-zero:
   1. device   the card's name, count, and nvidia-smi's name and power limit
               (no card: exit 2, no result printed);
-  2. build    nvcc builds the kernels K1-K10 from csrc/ (one process per
+  2. build    nvcc builds the kernels K1-K12 from csrc/ (one process per
               source, in parallel) and prints ptxas' register/smem lines;
               checks with cuobjdump that the code of K1 and of K2/K3 holds
               tensor-core (HMMA) instructions: their bf16 products run on
@@ -27,8 +27,11 @@ Phases; any failure raises and exits non-zero:
               request) against ops/duf_filter_ref.py at DUF's adaptation
               shape (8 SLR windows of 36x44) and inference shape (8
               windows of 144x176), R = 16, fp32 and bf16 filters, both
-              softmaxed and raw N(0, 1) filters (correctness checks, not
-              timed);
+              softmaxed and raw N(0, 1) filters; K11 warp_fwd_tangent and
+              K12 warp_bwd_tangent (grad flow, and grad x on request)
+              against grid_sample_ref's *_tangent_ref at TOF's meta
+              shapes (8 frames of 64x64 and 256x256), white-noise flows
+              N(0, 4^2) px and tangents (correctness checks, not timed);
   4. main     the DynaVSR adapt-and-infer loop at full EDVR-M x4 + MFDN
               width (configs/test/test_DynaVSR_Vid4.yml), random weights
               from a seed, on a synthetic 16-frame 144x176 clip, through
@@ -140,6 +143,28 @@ Phases; any failure raises and exits non-zero:
               timed on the meta update's own inputs (their largest call,
               40 SLR frames of 16x16) with their bounds; 2 meta updates
               profiled. Prints a `[meta] {json}` line.
+ 11. meta2    second-order meta-training of the BatchNorm backbones
+              through cli/train.train at full width, on 10a's LMDB with
+              10a's 7-frame MFDN as network_E, from random weights, 6
+              updates resumed from update 3, the running statistics
+              meta-trained as in JAX: 11a train_DynaVSR_TOF_Vimeo90K.yml
+              (TOFlow, 7 frames, in-module x4 pre-upscale, batch 8 x 7 x
+              256^2, alpha 1e-5, Adam 1e-5): K4 120, K5 72, K11 = K12 = 24
+              launches each update; 11b train_DynaVSR_DUF_Vimeo90K.yml
+              (DUF-16L, batch 4): K6 5, K7 3; neither launches K1-K3 or
+              K8-K10. Checks: l_outer on the first batch falls, every
+              running statistic moves, the resumed net (statistics
+              included), Adam moments and next batch bitwise. 11c, each
+              net: one meta update with every K4-K7, K11, K12 call held
+              against its plain version (1e-4 of the largest value); 2
+              meta updates profiled; the second-order part of the meta
+              gradient with the kernels against the plain op's (relative
+              norm 1e-2) at the first alpha in 1e-3..10 where it is >= 5 %
+              of the gradient, for TOF with SpyNet's last-conv biases
+              redrawn N(0, 0.1) so the flows sit off the pixel grid (the
+              trained weights' reading is reported too); K11 / K12 timed on
+              the inputs of their largest call. Prints a `[meta2] {json}`
+              line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -147,12 +172,14 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -221,6 +248,9 @@ def warp_label(kind: str, shape) -> str:
 
 WARP_SHAPES = {warp_label("adapt", WARP_ADAPT): WARP_ADAPT,
                warp_label("infer", WARP_INFER): WARP_INFER}
+# TOF's meta-training warps (train_DynaVSR_TOF_Vimeo90K.yml, 8 windows): the
+# inner step's SLR pre-upscaled to 64x64, the outer LR to 256x256.
+WARP_META_SHAPES = {warp_label("meta", s): s for s in ((8, 3, 64, 64), (8, 3, 256, 256))}
 
 # The DynaVSR-DUF path (configs/test/test_DUF_Vid4.yml's network, 7 frames):
 # the filter runs on the centre frame, 8 SLR windows of 36x44 in
@@ -254,6 +284,13 @@ KERNELS = {
                                "dynavsr_tpu/ops/dcn_fused.py:100"),
     "dcn_bwd_data_tangent": ("dynavsr_tpu_torch/csrc/dcn_tangent.cu", "meta 40x16x16",
                              "dynavsr_tpu/ops/dcn_fused.py:100"),
+    # The second order of _packed_bilinear's autodiff (TOF's meta-training),
+    # timed at its largest call of a meta update: the inner step's 8
+    # windows, SLR pre-upscaled to 64x64.
+    "warp_fwd_tangent": ("dynavsr_tpu_torch/csrc/warp_tangent.cu", "meta 8x64x64",
+                         "dynavsr_tpu/ops/grid_sample.py:54"),
+    "warp_bwd_tangent": ("dynavsr_tpu_torch/csrc/warp_tangent.cu", "meta 8x64x64",
+                         "dynavsr_tpu/ops/grid_sample.py:54"),
 }
 DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
 # Device kernels a wrapper launches besides `<name>_kernel`, counted in its
@@ -266,7 +303,8 @@ PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",),
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
 DUF_KERNELS = ("duf_fwd", "duf_bwd")
 # The K4-K7 wrappers by module: the profile splits their time by call size.
-SIZED = {"warp_fwd": warp, "warp_bwd": warp, "duf_fwd": duf_filter, "duf_bwd": duf_filter}
+SIZED = {"warp_fwd": warp, "warp_bwd": warp, "warp_fwd_tangent": warp, "warp_bwd_tangent": warp,
+         "duf_fwd": duf_filter, "duf_bwd": duf_filter}
 
 
 def reset_all_counts() -> None:
@@ -659,6 +697,14 @@ def phase_kernels() -> None:
         warp_against_plain(label, x, flow, cot, need_x=True, timed=False)
         del x, flow, cot
         torch.cuda.empty_cache()
+    for label, shape in WARP_META_SHAPES.items():
+        x = torch.randn(*shape, generator=gen, device="cuda")
+        flow = torch.randn(shape[0], 2, *shape[2:], generator=gen, device="cuda") * 4.0
+        cflow = torch.randn(shape[0], 2, *shape[2:], generator=gen, device="cuda")
+        cot = torch.randn(*shape, generator=gen, device="cuda")
+        for need_x in (True, False):
+            warp_tangent_against_plain(label, x, flow, cflow, cot, need_x)
+        del x, flow, cflow, cot
     for label, (b, c, h, w) in DUF_SHAPES.items():
         for fdtype in (torch.float32, torch.bfloat16):
             for kind in ("softmax", "raw"):
@@ -1697,6 +1743,9 @@ META_LAUNCHES = {"dcn_fwd": 28, "dcn_bwd_data": 24, "dcn_bwd_weight": 20,
 # 1e-2 of the term.
 ALPHAS = (1e-3, 1e-2, 1e-1, 1.0, 10.0)
 TERM_SHARE = 5e-2
+# Phase 11's term checks take a try whose fp32 plain term is within this of
+# the float64 one (second_order_term).
+GAUGE = 1e-3
 OFFSET_STD = 0.05  # the redrawn offset convs of 10d's term check
 
 
@@ -1816,142 +1865,186 @@ def trained_model(opt: dict):
                                          "pretrain_model_G": final}})
 
 
-def record_kernel_calls(run) -> list:
-    """Run `run()` with every K1-K3 and K8-K10 wrapper call held against its
-    plain version in fp32 on the same inputs, as it happens (phase 3's
+def _dcn_vjp(x, offset, mask, weight, cot, gd, wrt):
+    """The plain DCN's gradients in the inputs `wrt` (indices into (x,
+    offset, mask, weight)), in fp32."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().float().requires_grad_()
+                  for t in (x, offset, mask, weight)]
+        out = deform_conv2d_ref(*leaves, deformable_groups=gd)
+        grads = torch.autograd.grad(out, [leaves[i] for i in wrt if leaves[i] is not None],
+                                    cot.float())
+    return list(grads)
+
+
+# The plain version of each K1-K3, K8-K10 wrapper, on its own arguments: the
+# non-None outputs in the wrapper's order (K1's `_fwd` also returns its
+# channels-last copy of x, which is not compared).
+PLAIN_DCN_CALLS = {
+    "_fwd": lambda x, offset, mask, weight, bias, gd: [deform_conv2d_ref(
+        x.float(), offset, mask, weight, bias, deformable_groups=gd)],
+    "dcn_bwd_data": lambda x, offset, mask, weight, cot, gd: _dcn_vjp(
+        x, offset, mask, weight, cot, gd, (0, 1, 2)),
+    "dcn_bwd_weight": lambda x, offset, mask, cot, gd: _dcn_vjp(
+        x, offset, mask, torch.zeros(cot.shape[1], x.shape[1], 3, 3, device=x.device), cot,
+        gd, (3,)),
+    "dcn_fwd_tangent": lambda *a: [dcn_fwd_tangent_ref(*a)],
+    "dcn_bwd_weight_tangent": lambda *a: [dcn_bwd_weight_tangent_ref(*a)],
+    "dcn_bwd_data_tangent": lambda *a: [t for t in dcn_bwd_data_tangent_ref(*a)
+                                        if t is not None],
+}
+
+
+def checked_calls(run, module, plain: dict, keep=()) -> tuple:
+    """Run `run()` with every call of `module`'s wrappers named in `plain`
+    held against plain[name] on the same inputs as it happens (phase 3's
     tolerance: 1e-4 of the plain result's largest value); returns one row a
-    call, and keeps the inputs of the largest call of each K8-K10."""
-    rows, keep = [], {}
-    orig = {n: getattr(dcn, n) for n in ("_fwd", "dcn_bwd_data", "dcn_bwd_weight",
-                                         *TANGENT_KERNELS)}
-
-    def vjp(x, offset, mask, weight, cot, gd, wrt):
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().float().requires_grad_()
-                      for t in (x, offset, mask, weight)]
-            out = deform_conv2d_ref(*leaves, deformable_groups=gd)
-            grads = torch.autograd.grad(out, [leaves[i] for i in wrt if leaves[i] is not None],
-                                        cot.float())
-        return list(grads)
-
-    def plain(name, args):
-        if name == "_fwd":
-            x, offset, mask, weight, bias, gd = args
-            return [deform_conv2d_ref(x.float(), offset, mask, weight, bias,
-                                      deformable_groups=gd)]
-        if name == "dcn_bwd_data":
-            x, offset, mask, weight, cot, gd = args
-            return vjp(x, offset, mask, weight, cot, gd, (0, 1, 2))
-        if name == "dcn_bwd_weight":
-            x, offset, mask, cot, gd = args
-            w = torch.zeros(cot.shape[1], x.shape[1], 3, 3, device=x.device)
-            return vjp(x, offset, mask, w, cot, gd, (3,))
-        if name == "dcn_fwd_tangent":
-            return [dcn_fwd_tangent_ref(*args)]
-        if name == "dcn_bwd_weight_tangent":
-            return [dcn_bwd_weight_tangent_ref(*args)]
-        return [t for t in dcn_bwd_data_tangent_ref(*args) if t is not None]
+    call, and the arguments of the largest call of each wrapper in `keep`."""
+    rows, kept = [], {}
+    orig = {n: getattr(module, n) for n in plain}
 
     def recording(name):
-        def call(*args):
-            out = orig[name](*args)
-            got = [out[0]] if name == "_fwd" else (
-                [out] if torch.is_tensor(out) else [t for t in out if t is not None])
+        def call(*args, **kwargs):
+            out = orig[name](*args, **kwargs)
+            args = args + tuple(kwargs.values())
+            got = [out] if torch.is_tensor(out) else [t for t in out if t is not None]
             with torch.no_grad():
-                want = plain(name, args)
+                want = plain[name](*args)
             err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
             scale = max(float(w.abs().max()) for w in want)
-            kname = "dcn_fwd" if name == "_fwd" else name
-            rows.append(dict(name=kname, dims=list(args[0].shape), max_abs_err=err,
-                             tol=1e-4 * scale, ok=err <= 1e-4 * scale))
-            if name in TANGENT_KERNELS and (name not in keep or args[0].numel()
-                                            > keep[name][0].numel()):
-                keep[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            rows.append(dict(name="dcn_fwd" if name == "_fwd" else name,
+                             dims=list(args[0].shape), max_abs_err=err, tol=1e-4 * scale,
+                             ok=err <= 1e-4 * scale))
+            if name in keep and (name not in kept or args[0].numel() > kept[name][0].numel()):
+                kept[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
             return out
         return call
 
     for n in orig:
-        setattr(dcn, n, recording(n))
+        setattr(module, n, recording(n))
     try:
         run()
     finally:
         for n, f in orig.items():
-            setattr(dcn, n, f)
-    return rows, keep
+            setattr(module, n, f)
+    return rows, kept
 
 
 def meta_gradient(model, batch, alpha: float, first_order: bool) -> torch.Tensor:
-    """The meta gradient (flattened, in parameter order) at the model's
+    """The meta gradient (flattened, in meta_variables order: the
+    parameters, then any BatchNorm running statistics) at the model's
     weights on `batch`, without an update."""
-    from dynavsr_tpu_torch.train.meta import MetaConfig, meta_loss
+    from dynavsr_tpu_torch.train.meta import MetaConfig, meta_loss, meta_variables
 
     cfg = MetaConfig(inner_lr=alpha, first_order=first_order)
-    params = dict(model.netG.named_parameters())
-    outer, _ = meta_loss(model.netG, params, batch, cfg, make_model_apply("EDVR", SCALE))
-    grads = torch.autograd.grad(outer, list(params.values()), allow_unused=True)
-    return torch.cat([(torch.zeros_like(p) if g is None else g).flatten()
-                      for g, p in zip(grads, params.values())])
+    leaves = {k: t.detach().requires_grad_() for k, t in meta_variables(model.netG).items()}
+    outer, _ = meta_loss(model.netG, leaves, batch, cfg, make_model_apply(model.netG.arch, SCALE))
+    grads = torch.autograd.grad(outer, list(leaves.values()), allow_unused=True)
+    return torch.cat([(torch.zeros_like(t) if g is None else g).flatten()
+                      for g, t in zip(grads, leaves.values())])
 
 
-def term_vs_plain(model, batch, alpha: float) -> dict:
+def term_vs_plain(model, batch, alpha: float, swap, gauge: bool = False) -> dict:
     """The second-order part of the meta gradient (second minus first
-    order) at `alpha`, with the kernels and with the plain DCN: its share of
-    the gradient, the relative norm of their difference, their cosine."""
+    order) at `alpha`, with the kernels and with the plain op (`swap` =
+    (module, attribute, plain function)): its share of the gradient, the
+    relative norm of their difference, their cosine. With `gauge`, also the
+    plain op's term on a float64 copy of the net and batch, and each fp32
+    term's distance to it (`plain_vs_f64`, `kernel_vs_f64`)."""
     g1, g2 = meta_gradient(model, batch, alpha, True), meta_gradient(model, batch, alpha, False)
-    swap = edvr_module.deform_conv2d
-    edvr_module.deform_conv2d = deform_conv2d_ref
+    module, attr, plain_fn = swap
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain_fn)
     try:
         p1, p2 = (meta_gradient(model, batch, alpha, True),
                   meta_gradient(model, batch, alpha, False))
+        if gauge:
+            m64 = types.SimpleNamespace(netG=copy.deepcopy(model.netG).double())
+            b64 = {k: v.double() for k, v in batch.items()}
+            d64 = meta_gradient(m64, b64, alpha, False) - meta_gradient(m64, b64, alpha, True)
+            del m64
     finally:
-        edvr_module.deform_conv2d = swap
+        setattr(module, attr, kernel_fn)
     d_kernel, d_plain = g2 - g1, p2 - p1
-    return dict(alpha=alpha, share=float(d_kernel.norm() / g2.norm()),
-                rel_diff=float((d_kernel - d_plain).norm() / d_plain.norm()),
-                cosine=float(torch.nn.functional.cosine_similarity(d_kernel, d_plain, dim=0)),
-                grad_rel_diff=float((g2 - p2).norm() / p2.norm()))
+    out = dict(alpha=alpha, share=float(d_kernel.norm() / g2.norm()),
+               rel_diff=float((d_kernel - d_plain).norm() / d_plain.norm()),
+               cosine=float(torch.nn.functional.cosine_similarity(d_kernel, d_plain, dim=0)),
+               grad_rel_diff=float((g2 - p2).norm() / p2.norm()))
+    if gauge:
+        out.update(plain_vs_f64=float((d_plain.double() - d64).norm() / d64.norm()),
+                   kernel_vs_f64=float((d_kernel.double() - d64).norm() / d64.norm()))
+    return out
 
 
-def second_order_term(model, batch, gen: torch.Generator) -> dict:
-    """10d's check of the second-order term as a whole, kernels against the
-    plain DCN (relative norm <= 1e-2), at the first alpha of ALPHAS whose
-    term is >= TERM_SHARE of the meta gradient. It runs on the 10c model
-    with its offset convs redrawn N(0, OFFSET_STD) from the seed: 10c's own
-    offsets are ~1e-4 px after 6 updates from zero-initialised offset
-    convs, so its samples sit on the pixel grid, where the bilinear
-    sample's derivative jumps and 1e-7 differences between two fp32 paths
-    take different sides of the kink (read there too, and reported). The
-    model's weights are restored after."""
-    offset_convs = {n: p for n, p in model.netG.named_parameters()
-                    if "conv_offset_mask.weight" in n}
-    own = {n: p.detach().clone() for n, p in offset_convs.items()}
-    with torch.no_grad():
-        for p in offset_convs.values():
-            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * OFFSET_STD)
-    ratios, alpha = {}, None
-    for a in (1e-5,) + ALPHAS:
-        g1, g2 = meta_gradient(model, batch, a, True), meta_gradient(model, batch, a, False)
-        ratios[a] = float((g2 - g1).norm() / g2.norm())
-        if a > 1e-5 and ratios[a] >= TERM_SHARE and math.isfinite(ratios[a]):
-            alpha = a
+def second_order_term(tag: str, model, batch, gen: torch.Generator, swap, redraw=None,
+                      std: float = 0.0, tries: int = 1) -> dict:
+    """The check of the second-order term as a whole, kernels against the
+    plain op (`swap`; relative norm <= 1e-2), at the first alpha of ALPHAS
+    whose term is >= TERM_SHARE of the meta gradient. With `redraw` (a
+    predicate on parameter names) it runs with those parameters redrawn
+    N(0, std) from the seed: a trained-from-zero DCN offset conv or a
+    near-zero SpyNet flow puts the bilinear samples on the pixel grid,
+    where the derivative jumps and 1e-7 differences between two fp32 paths
+    take different sides of the kink (read there too, and reported).
+
+    With `tries` > 1 each try is gauged (term_vs_plain's float64 term), and
+    the check is held on the first try whose fp32 plain term is within
+    GAUGE of the float64 one; the next try redraws (or, without `redraw`,
+    takes the next windows of the batch). Where fp32 rounding alone decides
+    which side of a kink samples take, the fp32 term is ill-conditioned: on
+    TOF's meta batch, with some SpyNet biases, the kernels' and the plain
+    warp's fp32 terms lay equally far from the float64 one, and two runs of
+    the same comparison disagreed by orders of magnitude, a reading that
+    says nothing of the kernels. The model's weights are restored after."""
+    redrawn = {n: p for n, p in model.netG.named_parameters() if redraw and redraw(n)}
+    own = {n: p.detach().clone() for n, p in redrawn.items()}
+    nb = next(iter(batch.values())).shape[0]
+    per_try = nb // tries
+    readings, held = [], None
+    for t in range(tries):
+        sub = batch if tries == 1 or redrawn else {k: v[t * per_try:(t + 1) * per_try]
+                                                    for k, v in batch.items()}
+        with torch.no_grad():
+            for p in redrawn.values():
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+        ratios, alpha = {}, None
+        for a in (1e-5,) + ALPHAS:
+            g1, g2 = meta_gradient(model, sub, a, True), meta_gradient(model, sub, a, False)
+            ratios[a] = float((g2 - g1).norm() / g2.norm())
+            if a > 1e-5 and ratios[a] >= TERM_SHARE and math.isfinite(ratios[a]):
+                alpha = a
+                break
+        check(alpha is not None,
+              f"{tag}: no alpha gives a second-order term >= {TERM_SHARE}: {ratios}")
+        reading = term_vs_plain(model, sub, alpha, swap, gauge=tries > 1)
+        reading.update(ratios=ratios, windows=next(iter(sub.values())).shape[0])
+        readings.append(reading)
+        if tries == 1 or reading["plain_vs_f64"] <= GAUGE:
+            held = reading
             break
-    check(alpha is not None,
-          f"10d: no alpha gives a second-order term >= {TERM_SHARE}: {ratios}")
-    off_grid = term_vs_plain(model, batch, alpha)
+    check(held is not None, f"{tag}: no try gives an fp32 plain term within {GAUGE} of the "
+                            f"float64 one: {readings}")
     with torch.no_grad():
-        for n, p in offset_convs.items():
+        for n, p in redrawn.items():
             p.copy_(own[n])
-    on_grid = term_vs_plain(model, batch, alpha)
-    print(f"[meta] 10d second-order term (meta gradient second - first order), offset convs "
-          f"N(0, {OFFSET_STD}): |term|/|grad| by alpha {ratios}; at alpha {alpha}: kernels vs "
-          f"plain DCN |diff|/|term| {off_grid['rel_diff']:.3e} (tol 1e-2), cosine "
-          f"{off_grid['cosine']:.6f}, whole gradient |diff|/|grad| "
-          f"{off_grid['grad_rel_diff']:.3e}; with 10c's own offsets (on the grid's kinks): "
-          f"term {on_grid['share']:.3e} of the gradient, |diff|/|term| "
-          f"{on_grid['rel_diff']:.3e}, cosine {on_grid['cosine']:.6f}")
-    check(off_grid["rel_diff"] <= 1e-2,
-          f"10d: the second-order term differs from the plain DCN's by {off_grid['rel_diff']}")
-    return dict(alpha=alpha, ratios=ratios, off_grid=off_grid, on_grid=on_grid)
+    on_grid = term_vs_plain(model, sub, held["alpha"], swap) if redrawn else held
+    what = f"{len(redrawn)} tensors redrawn N(0, {std})" if redrawn else "its own weights"
+    gauges = [f"{r.get('plain_vs_f64', math.nan):.2e}" for r in readings]
+    gauged = (f"; {len(readings)} tries, fp32 plain term vs float64 {gauges} (gauge "
+              f"{GAUGE}), kernels vs float64 {held.get('kernel_vs_f64', math.nan):.3e}"
+              ) if tries > 1 else ""
+    own_text = (f"; with the trained weights (samples on the grid's kinks): term "
+                f"{on_grid['share']:.3e} of the gradient, |diff|/|term| "
+                f"{on_grid['rel_diff']:.3e}, cosine {on_grid['cosine']:.6f}") if redrawn else ""
+    print(f"[{tag}] second-order term (meta gradient second - first order), {what}, "
+          f"{held['windows']} window(s): |term|/|grad| by alpha {held['ratios']}; at alpha "
+          f"{held['alpha']}: kernels vs plain {swap[1]} |diff|/|term| {held['rel_diff']:.3e} "
+          f"(tol 1e-2), cosine {held['cosine']:.6f}, whole gradient |diff|/|grad| "
+          f"{held['grad_rel_diff']:.3e}{gauged}{own_text}")
+    check(held["rel_diff"] <= 1e-2,
+          f"{tag}: the second-order term differs from the plain op's by {held['rel_diff']}")
+    return dict(alpha=held["alpha"], ratios=held["ratios"], off_grid=held, on_grid=on_grid,
+                tries=readings)
 
 
 def tangent_bound(name, shape, gd):
@@ -1997,7 +2090,8 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
         check(l_end < l_pix[0], f"{tag}: the l1 of batch 1 did not fall: {l_pix[0]} -> {l_end}")
         out[tag] = {k: v for k, v in m.items() if k not in ("opt", "recs", "first_batch")}
         out[tag].update(which=run["which"], l_pix=l_pix, l_first_batch_end=l_end,
-                        samples_per_s=16 / m["s_per_iter"])
+                        samples_per_s=16 / m["s_per_iter"],
+                        final=f"{m['opt']['path']['models']}/{run['niter']}_G.pth")
         print(f"[meta] {tag} {run['which']} (nf 64, batch 16 x 7 x 256^2): {run['niter']} "
               f"updates in {m['run_s']:.1f} s; updates 3-{run['niter']} {m['s_per_iter']:.4f} s "
               f"each, {16 / m['s_per_iter']:.1f} samples/s; loader wait "
@@ -2047,7 +2141,8 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
     # version, the second-order term held as a whole, K8-K10 timed.
     model.feed_data(batch)
     model.optimize_parameters()  # warm-up (builds the step)
-    calls, keep = record_kernel_calls(model.optimize_parameters)
+    calls, keep = checked_calls(model.optimize_parameters, dcn, PLAIN_DCN_CALLS,
+                                keep=TANGENT_KERNELS)
     by_kernel = {}
     for r in calls:
         n, e = by_kernel.get(r["name"], (0, 0.0))
@@ -2099,11 +2194,260 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
     out["10c"].update(busy_ms=prof.get("busy_ms"), idle_share=prof.get("idle_share"),
                       kernel_ms_per_update={k: v / 2 for k, v in prof.get("kernel_ms", {}).items()},
                       top=[(n[:80], ms) for n, ms in prof.get("top", [])])
-    out["10d"].update(second_order_term(model, batch, gen))
+    out["10d"].update(second_order_term(
+        "meta 10d", model, batch, gen, (edvr_module, "deform_conv2d", deform_conv2d_ref),
+        lambda n: "conv_offset_mask.weight" in n, OFFSET_STD))
     out["seconds_10c_10d"] = time.perf_counter() - t_meta
+    out["vimeo_lmdb"] = vimeo
     del model
     torch.cuda.empty_cache()
     return out, rows, m["launches"]
+
+
+# --------------------------------------------------------------- phase 11
+# Second-order meta-training of the BatchNorm backbones at full width:
+# train_DynaVSR_TOF_Vimeo90K.yml (TOFlow, 7 frames, the in-module x4
+# pre-upscale, batch 8) and train_DynaVSR_DUF_Vimeo90K.yml (DUF-16L, batch
+# 4), on phase 10's Vimeo90K-shaped LMDB with 10a's 7-frame MFDN as
+# network_E. The running statistics are meta-trained as in JAX.
+META2_RUNS = {
+    "11a": dict(name="DynaVSR_TOF_Vimeo90K", batch=8, swap=(tof_module, "warp_nchw",
+                                                            grid_sample_ref.warp_nchw),
+                net={"which_model_G": "TOF", "nframes": 7, "pre_upscale": True}),
+    "11b": dict(name="DynaVSR_DUF_Vimeo90K", batch=4,
+                swap=(duf_module, "dynamic_upsampling_filter", dynamic_upsampling_filter_ref),
+                net={"which_model_G": "DUF_16L", "nframes": 7}),
+}
+WARP_TANGENT_KERNELS = ("warp_fwd_tangent", "warp_bwd_tangent")
+# Launches a meta update (remat on), counted on CPU with plain stand-ins
+# (tests/test_torch_port_meta_tof.py, _duf.py): TOF 6 neighbours x 5 warps
+# in 4 forwards (K4), 3 backwards of the 24 warps whose flow is not the
+# level-0 zero (K5), one K11 / K12 each; DUF one filter in 4 forwards plus
+# the filter tangent K6(x, Cf), 3 backwards.
+META2_LAUNCHES = {"11a": {"warp_fwd": 120, "warp_bwd": 72, "warp_fwd_tangent": 24,
+                          "warp_bwd_tangent": 24},
+                  "11b": {"duf_fwd": 5, "duf_bwd": 3}}
+SPY_BIAS_STD = 0.1  # SpyNet blocks' last-conv biases for 11c's off-grid term check
+
+
+def meta2_opt(tag: str, gt: str, est: str, root: str, resume: str = None) -> dict:
+    """train_DynaVSR_TOF_Vimeo90K.yml / train_DynaVSR_DUF_Vimeo90K.yml as
+    cli/train.py derives them, from random weights (the configs'
+    checkpoints are not in the repo) with network_E from `est`."""
+    from dynavsr_tpu_torch.config.options import derive
+
+    run = META2_RUNS[tag]
+    opt = {
+        "name": run["name"], "model": "video_meta", "scale": SCALE,
+        "datasets": {"train": {"name": "Vimeo90K_meta", "mode": "meta", "dataroot_GT": gt,
+                               "N_frames": VIMEO_T, "GT_size": 256, "use_shuffle": True,
+                               "n_workers": 3, "batch_size": run["batch"]}},
+        "network_G": dict(run["net"]),
+        "network_E": {"which_model_G": "MFDN", "nf": 64},
+        "path": {"pretrain_model_G": None, "strict_load": True, "resume_state": resume,
+                 "pretrain_model_E": est},
+        "train": {"lr_G": 1e-5, "lr_scheme": "constant", "beta1": 0.9, "beta2": 0.99,
+                  "niter": META_NITER, "maml_lr_alpha": 1e-5, "maml_adapt_iter": 1,
+                  "first_order": False, "pixel_criterion": "cb", "pixel_weight": 1.0,
+                  "val_freq": 5e3, "manual_seed": 0},
+        "logger": {"print_freq": 1, "save_checkpoint_freq": META_SAVE},
+    }
+    return derive(opt, is_train=True, root=root)
+
+
+def _plain_vjp(fn, x, second, grad_out, need_x):
+    """The plain op's (grad x, unless not `need_x`; grad of its second
+    input) on the same inputs, in fp32."""
+    with torch.enable_grad():
+        xr = x.detach().float().requires_grad_(need_x)
+        sr = second.detach().float().requires_grad_()
+        grads = torch.autograd.grad(fn(xr, sr), [xr, sr] if need_x else [sr], grad_out.float())
+    return list(grads)
+
+
+# The plain version of each K4-K7, K11, K12 wrapper, on its own arguments:
+# the non-None outputs in the wrapper's order.
+PLAIN_BN_CALLS = {
+    "warp_fwd": lambda x, flow: [grid_sample_ref.warp_nchw(x, flow)],
+    "warp_bwd": lambda x, flow, g, need_x: _plain_vjp(grid_sample_ref.warp_nchw, x, flow, g,
+                                                      need_x),
+    "warp_fwd_tangent": lambda *a: [grid_sample_ref.warp_fwd_tangent_ref(*a)],
+    "warp_bwd_tangent": lambda x, flow, g, cf, need_x: [
+        t for t in grid_sample_ref.warp_bwd_tangent_ref(x, flow, g, cf, need_x)
+        if t is not None],
+    "duf_fwd": lambda x, f: [dynamic_upsampling_filter_ref(x, f)],
+    "duf_bwd": lambda x, f, g, need_x: _plain_vjp(dynamic_upsampling_filter_ref, x, f, g,
+                                                  need_x),
+}
+
+
+def warp_tangent_bound(name, shape, need_x=False):
+    """(bound_ms, bound_by, bytes, flops) of one fp32 K11 / K12 call on (B,
+    C, H, W) frames: each input read once, each output written once. K11
+    reads x, the flow and its tangent and writes C planes (2C + 4 values a
+    pixel); K12 reads x, the flow, the tangent and grad_out and writes grad
+    flow (2C + 6), and grad x when asked for (+C). Operations: ~10 a pixel
+    for the position and weights, then 13 (K11) or 5 (K12; +24 with grad
+    x) a channel."""
+    b, c, h, w = shape
+    px = b * h * w
+    if name == "warp_fwd_tangent":
+        vals, flops = 2 * c + 4, px * (10 + 13 * c)
+    else:
+        vals = 2 * c + 6 + (c if need_x else 0)
+        flops = px * (12 + (29 if need_x else 5) * c)
+    nbytes = px * vals * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def warp_tangent_against_plain(label, x, flow, cflow, cot, need_x):
+    """Phase 3's check of K11 and K12 against their plain formulas
+    (ops/grid_sample_ref.py): K11 1e-5 of the largest reference value (the
+    same products), K12 1e-4 (a sum over channels; grad x by atomics)."""
+    shape = tuple(x.shape)
+    got = {"warp_fwd_tangent": [warp.warp_fwd_tangent(x, flow, cflow)],
+           "warp_bwd_tangent": [t for t in warp.warp_bwd_tangent(x, flow, cot, cflow, need_x)
+                                if t is not None]}
+    torch.cuda.synchronize()
+    for name, tol in (("warp_fwd_tangent", 1e-5), ("warp_bwd_tangent", 1e-4)):
+        want = PLAIN_BN_CALLS[name](*((x, flow, cflow) if name == "warp_fwd_tangent"
+                                      else (x, flow, cot, cflow, need_x)))
+        err = max(float((g - w).abs().max()) for g, w in zip(got[name], want))
+        scale = max(float(w.abs().max()) for w in want)
+        ok = err <= tol * scale and len(got[name]) == len(want)
+        what = " +grad x" if need_x and "bwd" in name else ""
+        print(f"[kernel] {name:16s} {label} {shape} fp32{what} max|err| {err:.3e} "
+              f"(tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {shape}: {err} > {tol * scale}")
+
+
+def tangent_timing_row(name, args, smi: str) -> dict:
+    """K11 / K12 on the inputs of their largest call in a TOF meta update:
+    checked again, timed (wrapper_times) beside the plain formula and the
+    bound. No single PyTorch call computes either function."""
+    fn = getattr(warp, name)
+    plain = PLAIN_BN_CALLS[name]
+    need_x = bool(args[-1]) if name == "warp_bwd_tangent" else False
+    got = fn(*args)
+    got = [got] if torch.is_tensor(got) else [t for t in got if t is not None]
+    want = plain(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    shape = tuple(args[0].shape)
+    bound_ms, bound_by, nbytes, flops = warp_tangent_bound(name, shape, need_x)
+    t = wrapper_times(lambda: fn(*args), bound_ms, rtol=1e-5 if need_x else 0.0)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=5)
+    label = warp_label("meta", shape)
+    row = dict(name=name, label=label, dims=list(shape), dtype="float32", need_x=need_x,
+               max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops, plain_ms=plain_ms, library_ms=None, **t)
+    print(f"[timing] {name:16s} {label} max|err| {err:.3e}  {times_text(row)}  plain "
+          f"{plain_ms:.4f} ms  library none  bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB)  roofline {row['roofline']:.1%} (kernel "
+          f"{row['kernel_roofline']:.1%})  [{smi}]")
+    return row
+
+
+def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str) -> tuple:
+    """11a-11c; returns (measurements, K11 / K12 timing rows, 11a's launches)."""
+    from dynavsr_tpu_torch.models.video_base_model import MetaModel
+    from dynavsr_tpu_torch.train.meta import MetaConfig, meta_loss, meta_variables
+
+    out, rows, launches = {}, [], None
+    for tag, run in META2_RUNS.items():
+        t_run = time.perf_counter()
+        expect = META2_LAUNCHES[tag]
+        m = train_and_resume(tag, lambda res, tag=tag: meta2_opt(tag, vimeo, est, root, res),
+                             META_NITER, META_SAVE, MetaModel, per_update=expect)
+        recs = m["recs"]
+        l_outer = [r["l_outer"] for r in recs]
+        check(all(math.isfinite(r[k]) for r in recs for k in ("l_outer", "l_inner", "grad_norm")),
+              f"{tag}: {recs}")
+        model = trained_model(m["opt"])
+        arch = model.netG.arch
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in m["first_batch"].items()}
+        leaves = {k: t.detach().requires_grad_()
+                  for k, t in meta_variables(model.netG).items()}
+        cfg = MetaConfig(inner_lr=1e-5, first_order=True)  # the same value as second order
+        l_end = float(meta_loss(model.netG, leaves, batch, cfg,
+                                make_model_apply(arch, SCALE))[0].detach())
+        check(l_end < l_outer[0],
+              f"{tag}: l_outer of batch 1 did not fall: {l_outer[0]} -> {l_end}")
+        # The running statistics start at torch's 0 / 1 and move only by
+        # the meta updates (every forward of the path runs in eval mode).
+        stats = {k: v for k, v in model.netG.state_dict().items() if k.endswith(("running_mean",
+                                                                                  "running_var"))}
+        moved = {k: float((v - (0.0 if k.endswith("mean") else 1.0)).abs().max())
+                 for k, v in stats.items()}
+        check(stats and all(v > 0 for v in moved.values()),
+              f"{tag}: running statistics that did not move: "
+              f"{[k for k, v in moved.items() if v == 0][:5]}")
+        out[tag] = {k: v for k, v in m.items() if k not in ("opt", "recs", "first_batch")}
+        out[tag].update(l_outer=l_outer, l_inner=[r["l_inner"] for r in recs],
+                        grad_norm=[r["grad_norm"] for r in recs], l_first_batch_end=l_end,
+                        samples_per_s=run["batch"] / m["s_per_iter"], stats=len(stats),
+                        stats_moved_min=min(moved.values()), stats_moved_max=max(moved.values()))
+        print(f"[meta2] {tag} {arch} meta (batch {run['batch']} x 7 x 256^2, alpha 1e-5, second "
+              f"order, MFDN in the loop): {META_NITER} updates in {m['run_s']:.1f} s; updates "
+              f"3-{META_NITER} {m['s_per_iter']:.4f} s each, "
+              f"{run['batch'] / m['s_per_iter']:.2f} samples/s; loader wait "
+              f"{m['mean_data_wait_s'] * 1e3:.1f} ms an update; peak {m['peak_gib']:.2f} GiB "
+              f"above the {m['held_gib']:.2f} held; l_outer {[round(v, 5) for v in l_outer]}, "
+              f"batch 1 {l_outer[0]:.5f} -> {l_end:.5f}; {len(stats)} running statistics moved "
+              f"{min(moved.values()):.2e}-{max(moved.values()):.2e}; resumed at {META_SAVE} "
+              f"bitwise with them; launches an update {m['per_update']}  [{smi}]")
+        if tag == "11a":
+            launches = m["launches"]
+
+        # 11c: one meta update with every kernel call held against its plain
+        # version, the second-order term as a whole, K11 / K12 timed.
+        module = warp if arch == "TOF" else duf_filter
+        names = tuple(expect)
+        model.feed_data(batch)
+        model.optimize_parameters()  # warm-up (builds the step)
+        calls, keep = checked_calls(model.optimize_parameters, module,
+                                    {n: PLAIN_BN_CALLS[n] for n in names},
+                                    keep=WARP_TANGENT_KERNELS)
+        by_kernel = {}
+        for r in calls:
+            n, e = by_kernel.get(r["name"], (0, 0.0))
+            by_kernel[r["name"]] = (n + 1, max(e, r["max_abs_err"] / max(r["tol"], 1e-30)))
+        bad = [r for r in calls if not r["ok"]]
+        worst = {k: f"{n} calls, worst {e:.3f} of tol" for k, (n, e) in by_kernel.items()}
+        print(f"[meta2] 11c {arch}: one meta update's kernel calls vs plain (1e-4 of the "
+              f"largest value): {worst}")
+        check(not bad, f"11c {arch}: {len(bad)} calls off their plain version: {bad[:3]}")
+        check({k: n for k, (n, _) in by_kernel.items()} == expect,
+              f"11c {arch}: calls a meta update {by_kernel}")
+        out[tag]["calls"] = {k: list(v) for k, v in by_kernel.items()}
+        if arch == "TOF":
+            rows += [tangent_timing_row(name, keep[name], smi) for name in WARP_TANGENT_KERNELS]
+        del calls, keep
+        torch.cuda.empty_cache()
+
+        def two_updates():
+            for _ in range(2):
+                model.feed_data(batch)
+                model.optimize_parameters()
+            torch.cuda.synchronize()
+
+        prof = profile_clip(two_updates, f"{tag} two meta updates", smi, names)
+        out[tag].update(busy_ms=prof.get("busy_ms"), idle_share=prof.get("idle_share"),
+                        kernel_ms_per_update={k: v / 2 for k, v in
+                                              prof.get("kernel_ms", {}).items()},
+                        top=[(n[:80], ms) for n, ms in prof.get("top", [])])
+        redraw = (lambda n: n.startswith("spynet.block") and n.endswith("conv4.bias")) \
+            if arch == "TOF" else None
+        # On 2 windows a try, so that the float64 gauge stays cheap.
+        tries = 3 if arch == "TOF" else 2
+        term_batch = batch if arch == "DUF" else {k: v[:2] for k, v in batch.items()}
+        out[tag]["term"] = second_order_term(f"meta2 11c {arch}", model, term_batch, gen,
+                                             run["swap"], redraw, SPY_BIAS_STD, tries=tries)
+        out[tag]["seconds"] = time.perf_counter() - t_run
+        del model
+        torch.cuda.empty_cache()
+    return out, rows, launches
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -2151,13 +2495,19 @@ def main() -> None:
         meta, meta_rows, meta_launches = phase_meta(smi, gen, reds_gt, root)
         meta["seconds"] = time.perf_counter() - t_meta
         print(f"[meta] phase 10 took {meta['seconds']:.1f} s")
-    rows += train_rows + meta_rows
+        t_meta2 = time.perf_counter()
+        meta2, meta2_rows, meta2_launches = phase_meta2(smi, gen, meta["vimeo_lmdb"],
+                                                        meta["10a"]["final"], root)
+        meta2["seconds"] = time.perf_counter() - t_meta2
+        print(f"[meta2] phase 11 took {meta2['seconds']:.1f} s")
+    rows += train_rows + meta_rows + meta2_rows
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
     launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
                 **{k: tof_launches[k] for k in WARP_KERNELS},
                 **{k: duf_launches[k] for k in DUF_KERNELS},
-                **{k: meta_launches[k] for k in TANGENT_KERNELS}}
+                **{k: meta_launches[k] for k in TANGENT_KERNELS},
+                **{k: meta2_launches[k] for k in WARP_TANGENT_KERNELS}}
 
     kernels = []
     for name, (source, label, replaces) in KERNELS.items():
@@ -2168,7 +2518,7 @@ def main() -> None:
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")})
-        if "kernel_ms" in row:  # K4-K7: the device time of a launch, the host's of a call
+        if "kernel_ms" in row:  # K4-K12: the device time of a launch, the host's of a call
             kernels[-1].update({k: row[k] for k in ("kernel_ms", "host_us", "kernel_roofline")})
         if name in DCN_KERNELS + DUF_KERNELS:  # the bf16 call of the same kind
             r16 = next(r for r in rows if r["name"] == name and r["label"] == label
@@ -2189,11 +2539,12 @@ def main() -> None:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
                        "duf": duf_results, "surface": surface, "train": training,
-                       "meta": meta,
+                       "meta": meta, "meta2": meta2,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print("[train] " + json.dumps(training))
     print("[meta] " + json.dumps(meta, default=str))
+    print("[meta2] " + json.dumps(meta2, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

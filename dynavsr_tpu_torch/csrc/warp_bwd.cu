@@ -137,34 +137,6 @@ warp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ flow,
   }
 }
 
-// The card's SM count, asked once.
-static int sm_count() {
-  static const int n = [] {
-    int dev = 0, nsm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    return nsm;
-  }();
-  return n;
-}
-
-static bool aligned8(const void* p) { return (uintptr_t)p % 8 == 0; }
-
-// The block (column pairs x rows) for an H x W frame: as narrow as the row
-// allows (8, 16 or 32 pairs), then rows halved from 256 threads a block
-// down to one warp until B frames make at least two blocks an SM.
-static void launch_shape(int B, int H, int W, dim3* grid, dim3* block) {
-  const int cols = (W + kPx - 1) / kPx;
-  const int bx = cols >= 64 ? 32 : cols >= 32 ? 16 : 8;
-  int by = 256 / bx;
-  auto blocks = [&](int y) {
-    return (int64_t)((cols + bx - 1) / bx) * ((H + y - 1) / y) * B;
-  };
-  while (bx * by > 32 && blocks(by) < 2 * sm_count()) by /= 2;
-  *block = dim3(bx, by);
-  *grid = dim3((cols + bx - 1) / bx, (H + by - 1) / by, B);
-}
-
 }  // namespace warp
 
 // x (B, C, H, W), flow (B, 2, H, W), gout (B, C, H, W); gx (B, C, H, W),
@@ -174,7 +146,7 @@ extern "C" int warp_bwd(const void* x, const void* flow, const void* gout, void*
                         void* gflow, int B, int C, int H, int W, void* stream) {
   if ((int64_t)B * H * W == 0) return 0;
   dim3 grid, block;
-  warp::launch_shape(B, H, W, &grid, &block);
+  warp::launch_shape(B, H, W, warp::kPx, &grid, &block);
   cudaStream_t s = (cudaStream_t)stream;
   const float *xp = (const float*)x, *fp = (const float*)flow, *gp = (const float*)gout;
   float *gxp = (float*)gx, *gfp = (float*)gflow;

@@ -1,6 +1,7 @@
-// Shared pieces of the bilinear warp kernels (warp_fwd.cu, warp_bwd.cu):
-// one sample position's four corners, each with its weight and whether it
-// lies inside the frame.
+// Shared pieces of the bilinear warp kernels (warp_fwd.cu, warp_bwd.cu,
+// warp_tangent.cu): one sample position's four corners, each with its
+// weight and whether it lies inside the frame; the block shape that K5, K11
+// and K12 fit to the frame.
 //
 // Layouts (NCHW planes, contiguous, fp32), the layout the port's TOFlow
 // holds inside, so no launch needs a permute copy:
@@ -45,6 +46,35 @@ __device__ __forceinline__ Corners make_corners(float ys, float xs, int H, int W
   c.y0 = (iy0 || iy1) ? (int)y0f : 0;
   c.x0 = (ix0 || ix1) ? (int)x0f : 0;
   return c;
+}
+
+// The card's SM count, asked once.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, nsm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    return nsm;
+  }();
+  return n;
+}
+
+inline bool aligned8(const void* p) { return (uintptr_t)p % 8 == 0; }
+
+// The block (column groups of `px` pixels x rows) for an H x W frame: as
+// narrow as the row allows (8, 16 or 32 groups), then rows halved from 256
+// threads a block down to one warp until B frames make at least two blocks
+// an SM.
+inline void launch_shape(int B, int H, int W, int px, dim3* grid, dim3* block) {
+  const int cols = (W + px - 1) / px;
+  const int bx = cols >= 64 ? 32 : cols >= 32 ? 16 : 8;
+  int by = 256 / bx;
+  auto blocks = [&](int y) {
+    return (int64_t)((cols + bx - 1) / bx) * ((H + y - 1) / y) * B;
+  };
+  while (bx * by > 32 && blocks(by) < 2 * sm_count()) by /= 2;
+  *block = dim3(bx, by);
+  *grid = dim3((cols + bx - 1) / bx, (H + by - 1) / by, B);
 }
 
 }  // namespace warp

@@ -70,7 +70,7 @@ class _FlaxBatchNorm:
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x if x.dtype == torch.float64 else x.float()  # float64 stays (a reference run)
         if not self.training:
             if self.running_mean.requires_grad or self.running_var.requires_grad:
                 # Adaptation in bn_mode 'grad_stats' differentiates in the

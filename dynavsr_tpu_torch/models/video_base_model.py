@@ -15,7 +15,9 @@ as in JAX: the train step sets each update's lr from the schedule.
 
 MetaModel meta-trains the VSR net (train/meta.py) on batches of SLR / LR
 windows and their LR / HR centres, both forwards mod-padded as
-`make_model_apply` pads them. DownscalerModel trains MFDN / SFDN with the
+`make_model_apply` pads them; its optimizer holds the net's BatchNorm
+running statistics beside its parameters, as the JAX package's meta step
+differentiates and steps them. DownscalerModel trains MFDN / SFDN with the
 LR windows as input and the SLR windows as target.
 """
 
@@ -36,7 +38,7 @@ from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
 from dynavsr_tpu_torch.train import checkpoint
 from dynavsr_tpu_torch.train.checkpoint import load_network, load_pretrained, save_network
-from dynavsr_tpu_torch.train.meta import MetaConfig, make_meta_train_step
+from dynavsr_tpu_torch.train.meta import MetaConfig, make_meta_train_step, meta_variables
 from dynavsr_tpu_torch.train.trainer import (
     TrainerConfig,
     make_optimizer,
@@ -94,8 +96,12 @@ class VideoBaseModel:
         self.log: Dict[str, float] = {}
         self._batch: Dict[str, torch.Tensor] = {}
         self._fake_H: Optional[torch.Tensor] = None
-        self.optimizer = make_optimizer(self.cfg, self.netG.parameters()) if self.is_train else None
+        self.optimizer = make_optimizer(self.cfg, self._trained()) if self.is_train else None
         self._train_step = None
+
+    def _trained(self):
+        """The tensors the optimizer steps: the net's parameters."""
+        return self.netG.parameters()
 
     @contextlib.contextmanager
     def _eval_mode(self):
@@ -220,8 +226,11 @@ class MetaModel(VideoBaseModel):
     pixel_weight set MetaConfig; the fed batch carries SLR, LR, LR_center
     and HR_center (cli/train.synthesize_meta_batch).
 
-    Second order runs only where the port has its kernels: an EDVR net in
-    bf16, or a TOF / DUF net with first_order false, raises (ROADMAP A.7)
+    EDVR, TOF and DUF meta-train to second order on the kernels. The
+    optimizer steps meta_variables(netG): the parameters and the BatchNorm
+    running statistics (TOF, DUF), whose Adam moments the `.state` file
+    keeps. Second order in bf16 through the DCN or the dynamic filter (an
+    EDVR or DUF net in bf16 with first_order false) raises (ROADMAP A.7)
     rather than train to first order silently."""
 
     def __init__(self, opt: Mapping, device=None):
@@ -237,12 +246,17 @@ class MetaModel(VideoBaseModel):
             raise NotImplementedError(
                 f"meta-training EDVR in {net.get('dtype')}: the DCN's second-order kernels take "
                 "float32 (bf16 second order is ROADMAP A.7)")
-        if self.netG.arch in ("TOF", "DUF") and not self.meta_cfg.first_order:
+        if (self.netG.arch == "DUF" and net.get("dtype") not in (None, "float32")
+                and not self.meta_cfg.first_order):
             raise NotImplementedError(
-                f"second-order meta-training of {self.netG.arch} needs "
-                f"{'the warp' if self.netG.arch == 'TOF' else 'the dynamic filter'}'s double "
-                "backward, which is ROADMAP A.7; set train.first_order: true for FOMAML")
+                f"second-order meta-training of DUF in {net.get('dtype')}: the dynamic filter's "
+                "second order takes float32 filters (bf16 second order is ROADMAP A.7)")
         self._meta_step = None
+
+    def _trained(self):
+        """The parameters and the BatchNorm running statistics (the JAX
+        package's meta step steps its whole variables dict)."""
+        return list(meta_variables(self.netG).values())
 
     def feed_data(self, data: Mapping, need_GT: bool = True) -> None:
         """Tensors or numpy arrays (NHWC) -> float32 tensors on the device."""

@@ -20,14 +20,16 @@ from typing import Dict
 import torch
 
 __all__ = ["SOURCES", "build", "load", "lib_path", "stream", "raise_if",
-           "refuse_double_backward"]
+           "refuse_double_backward", "cotangents", "accumulate"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("dcn_fwd", "dcn_bwd", "dcn_tangent", "warp_fwd", "warp_bwd", "duf_fwd", "duf_bwd")
+SOURCES = ("dcn_fwd", "dcn_bwd", "dcn_tangent", "warp_fwd", "warp_bwd", "warp_tangent",
+           "duf_fwd", "duf_bwd")
 _HEADERS = {"dcn_fwd": ("dcn_common.cuh",), "dcn_bwd": ("dcn_common.cuh",),
             "dcn_tangent": ("dcn_common.cuh",),
             "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",),
+            "warp_tangent": ("warp_common.cuh",),
             "duf_fwd": ("duf_common.cuh",), "duf_bwd": ("duf_common.cuh",)}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "dcn_bwd_data_tangent": [_VP] * 9 + [_I] * 6 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
+    "warp_fwd_tangent": [_VP] * 4 + [_I] * 4 + [_VP],
+    "warp_bwd_tangent": [_VP] * 6 + [_I] * 4 + [_VP],
     "duf_fwd": [_VP] * 3 + [_I] * 6 + [_VP],
     "duf_bwd": [_VP] * 5 + [_I] * 6 + [_VP],
 }
@@ -129,3 +133,23 @@ def refuse_double_backward(kernels: str, what: str) -> None:
         raise RuntimeError(
             f"a double backward (create_graph=True) through the CUDA kernels {kernels} is "
             f"not implemented: their second-order terms would be dropped. {what}")
+
+
+def cotangents(*cots):
+    """The cotangents of a second-order backward, with None for each that is
+    absent or all zero (one device sync for all of them), so a term along a
+    zero cotangent skips its launches."""
+    present = [i for i, t in enumerate(cots) if t is not None]
+    if not present:
+        return cots
+    nonzero = torch.stack([cots[i].any() for i in present]).tolist()
+    out = list(cots)
+    for i, nz in zip(present, nonzero):
+        if not nz:
+            out[i] = None
+    return out
+
+
+def accumulate(total, term):
+    """total + term, where a total of None is nothing yet."""
+    return term if total is None else total + term

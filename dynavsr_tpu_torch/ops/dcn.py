@@ -255,22 +255,7 @@ def dcn_bwd_data_tangent(x, offset, mask, weight, grad_out, coff, deformable_gro
     return gx.permute(0, 3, 1, 2), goff, gmask
 
 
-def _cotangents(*cots):
-    """The cotangents with None for each that is absent or all zero (one
-    device sync for all of them)."""
-    present = [i for i, t in enumerate(cots) if t is not None]
-    if not present:
-        return cots
-    nonzero = torch.stack([cots[i].any() for i in present]).tolist()
-    out = list(cots)
-    for i, nz in zip(present, nonzero):
-        if not nz:
-            out[i] = None
-    return out
-
-
-def _acc(total, term):
-    return term if total is None else total + term
+_cotangents, _acc = _build.cotangents, _build.accumulate
 
 
 class DeformConv2dFunction(torch.autograd.Function):

@@ -9,6 +9,13 @@ or bf16 (DUF's filter head runs in bf16 in bf16 mode, while the centre
 frame it filters stays fp32), and write fp32; grad filters comes back in
 the filters' dtype.
 
+Second order (DUF's meta-training, a gradient of a gradient): the filter
+is bilinear in (x, filters), so the backward runs K7 through
+`DufBwdFunction`, whose own backward is K6 / K7 again with their inputs
+swapped; no other kernel is needed. It takes fp32 filters and cotangents
+(bf16 raises: ROADMAP A.7's bf16 second order). A first-order backward
+launches K7 once, as before; a third backward raises.
+
 Layout: NCHW planes, the port's DUF's own (see duf_filter_ref.py).
 
 Each launcher adds one to its module-level count where it launches its
@@ -24,8 +31,8 @@ import torch
 from dynavsr_tpu_torch.ops import _build
 from dynavsr_tpu_torch.ops.duf_filter_ref import TAPS, dynamic_upsampling_filter_ref
 
-__all__ = ["dynamic_upsampling_filter", "DufFilterFunction", "duf_fwd", "duf_bwd",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["dynamic_upsampling_filter", "DufFilterFunction", "DufBwdFunction", "duf_fwd",
+           "duf_bwd", "launch_counts", "reset_launch_counts"]
 
 fwd_launches = 0
 bwd_launches = 0
@@ -115,8 +122,8 @@ def duf_bwd(x: torch.Tensor, filters: torch.Tensor, grad_out: torch.Tensor, need
 
 
 class DufFilterFunction(torch.autograd.Function):
-    """Forward K6; backward K7 (grad x only when x needs it). First order
-    only: a double backward raises (`_build.refuse_double_backward`)."""
+    """Forward K6; backward K7 (grad x only when x needs it) through
+    DufBwdFunction, so that a create_graph=True backward records it."""
 
     @staticmethod
     def forward(ctx, x, filters):
@@ -125,12 +132,52 @@ class DufFilterFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        _build.refuse_double_backward(
-            "K7 duf_bwd", "DUF's meta-training needs a double backward composed from K6 / K7 "
-            "(ROADMAP A.7).")
         x, filters = ctx.saved_tensors
-        gx, gf = duf_bwd(x, filters, grad_out, need_x=ctx.needs_input_grad[0])
+        gx, gf = DufBwdFunction.apply(x, filters, grad_out, ctx.needs_input_grad[0])
         return gx, gf if ctx.needs_input_grad[1] else None
+
+
+class DufBwdFunction(torch.autograd.Function):
+    """K7 as a function of (x, filters, grad_out) -> (grad x or None unless
+    `need_x`, grad filters). Its backward along the cotangents (Cx, Cf) of
+    K7's two outputs, the filter being bilinear in (x, filters):
+      grad_out <- K6(Cx, filters) + K6(x, Cf)
+      filters  <- K7(x:=Cx, filters, grad_out).grad_filters
+      x        <- K7(x, filters:=Cf, grad_out).grad_x
+    A cotangent that is None or all zero skips its launches; fp32 only. A
+    third backward raises."""
+
+    @staticmethod
+    def forward(ctx, x, filters, grad_out, need_x):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, filters, grad_out)
+        return duf_bwd(x, filters, grad_out, need_x=need_x)
+
+    @staticmethod
+    def backward(ctx, cx, cf):
+        _build.refuse_double_backward("K6, K7 (the dynamic filter's second order)",
+                                      "A third derivative of the filter is not planned.")
+        x, filters, go = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        cx, cf = _build.cotangents(cx, cf)
+        present = [t for t in (cx, cf) if t is not None]
+        if present and any(t.dtype == torch.bfloat16 for t in (filters, *present)):
+            raise NotImplementedError("the dynamic filter's second order takes float32 filters; "
+                                      "a bf16 second order is ROADMAP A.7")
+        gx = gf = ggo = None
+        if cx is not None:
+            cx = cx.contiguous()
+            if need[2]:
+                ggo = duf_fwd(cx, filters)
+            if need[1]:
+                gf = duf_bwd(cx, filters, go, need_x=False)[1]
+        if cf is not None:
+            cf = cf.contiguous()
+            if need[2]:
+                ggo = _build.accumulate(ggo, duf_fwd(x, cf))
+            if need[0]:
+                gx = duf_bwd(x, cf, go, need_x=True)[0]
+        return gx, gf, ggo, None
 
 
 def dynamic_upsampling_filter(x: torch.Tensor, filters: torch.Tensor) -> torch.Tensor:

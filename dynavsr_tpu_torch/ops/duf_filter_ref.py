@@ -11,7 +11,8 @@ with k = 5 i + j (row-major taps, as unfold and the JAX function order
 them) and xpad = x zero-padded by 2. The layout is the kernels' own, NCHW
 planes: x (B, C, H, W), filters (B, 25, R, H, W), out (B, C*R, H, W) in the
 channel order c*R + r that pixel_shuffle expects. Sums are taken in fp32
-(filters may be bf16, as DUF's are in bf16 mode); the output has x's dtype.
+(filters may be bf16, as DUF's are in bf16 mode), or in float64 for a
+float64 x (a reference run); the output has x's dtype.
 Autograd is torch's own.
 """
 
@@ -29,8 +30,9 @@ def dynamic_upsampling_filter_ref(x: torch.Tensor, filters: torch.Tensor) -> tor
     """x (B, C, H, W), filters (B, 25, R, H, W) -> (B, C*R, H, W)."""
     b, c, h, w = x.shape
     r = filters.shape[2]
-    xp = F.pad(x.float(), (2, 2, 2, 2))
-    f = filters.float()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xp = F.pad(x.to(acc), (2, 2, 2, 2))
+    f = filters.to(acc)
     out = None
     for k in range(TAPS):
         i, j = divmod(k, 5)

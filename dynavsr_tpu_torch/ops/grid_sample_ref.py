@@ -12,6 +12,13 @@ outside the frame give zeros and never overflow. Autograd is torch's own
 The public functions keep the JAX package's layout: NHWC frames, coords as
 (y, x), flows as (dx, dy). `warp_nchw` / `sample_nchw` are the same
 arithmetic on NCHW planes, the layout the port's TOFlow holds inside.
+
+`warp_fwd_tangent_ref` and `warp_bwd_tangent_ref` are the plain versions of
+K11 and K12, the warp's second order (ops/grid_sample.py:WarpBwdFunction),
+written out as explicit formulas over the four corners, as autograd of
+`warp_nchw` differentiates it twice. The tests hold them against
+`torch.func.jvp` and double autograd; nothing on the card's path runs
+them.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bilinear_sample", "grid_sample", "flow_warp", "sample_nchw", "warp_nchw",
-           "flow_grid"]
+           "flow_grid", "warp_fwd_tangent_ref", "warp_bwd_tangent_ref"]
 
 
 def sample_nchw(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -55,6 +62,68 @@ def warp_nchw(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """x (B, C, H, W) warped by flow (B, 2, H, W) as (dx, dy): output pixel
     (i, j) samples x at (i + dy, j + dx)."""
     return sample_nchw(x, *flow_grid(flow))
+
+
+def _corners(x: torch.Tensor, flow: torch.Tensor):
+    """The four corners of each output pixel's sample, as warp_nchw takes
+    them: (values v00, v01, v10, v11, each (B, C, H, W), 0 outside the
+    frame; weights wy0, wy1, wx0, wx1, each (B, 1, H, W); flat indices
+    (B, 1, H*W) and inside masks (B, 1, H, W) of the corners in that
+    order)."""
+    b, c, h, w = x.shape
+    ys, xs = flow_grid(flow)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy1, wx1 = (ys - y0)[:, None], (xs - x0)[:, None]
+    flat = x.reshape(b, c, h * w)
+    vals, idxs, masks = [], [], []
+    for yf, xf in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)):
+        inside = ((yf >= 0) & (yf <= h - 1) & (xf >= 0) & (xf <= w - 1))[:, None]
+        idx = (yf.clamp(0, h - 1) * w + xf.clamp(0, w - 1)).long().reshape(b, 1, h * w)
+        v = torch.gather(flat, 2, idx.expand(b, c, h * w)).reshape(b, c, h, w)
+        vals.append(v * inside)
+        idxs.append(idx)
+        masks.append(inside)
+    return vals, (1.0 - wy1, wy1, 1.0 - wx1, wx1), idxs, masks
+
+
+def warp_fwd_tangent_ref(x: torch.Tensor, flow: torch.Tensor, cflow: torch.Tensor
+                         ) -> torch.Tensor:
+    """K11's function: the warp's derivative along a flow tangent,
+    T = d out / d flow_x * cflow_x + d out / d flow_y * cflow_y, (B, C, H, W).
+    x (B, C, H, W); flow, cflow (B, 2, H, W) as (dx, dy)."""
+    (v00, v01, v10, v11), (wy0, wy1, wx0, wx1), _, _ = _corners(x, flow)
+    d_dx = wy0 * (v01 - v00) + wy1 * (v11 - v10)
+    d_dy = wx0 * (v10 - v00) + wx1 * (v11 - v01)
+    return d_dx * cflow[:, 0:1] + d_dy * cflow[:, 1:2]
+
+
+def warp_bwd_tangent_ref(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
+                         cflow: torch.Tensor, need_x: bool):
+    """K12's function: the gradient of <cflow, grad flow>, grad flow being
+    K5's (sum_c grad_out * d out / d flow), with respect to flow and, with
+    `need_x`, to x -> (grad x or None, grad flow).
+
+    In the flow, only the cross derivative of a bilinear sample is nonzero
+    off the grid lines: d^2 out / d flow_x d flow_y = v00 - v01 - v10 + v11,
+    so grad flow_x = sum_c grad_out * cross * cflow_y and grad flow_y the
+    same with cflow_x. In x it is a scatter of grad_out times each corner
+    weight's derivative along cflow into the four corners (inside the frame
+    only)."""
+    (v00, v01, v10, v11), (wy0, wy1, wx0, wx1), idxs, masks = _corners(x, flow)
+    cross = (grad_out * (v00 - v01 - v10 + v11)).sum(1)
+    gflow = torch.stack((cross * cflow[:, 1], cross * cflow[:, 0]), dim=1)
+    if not need_x:
+        return None, gflow
+    b, c, h, w = x.shape
+    cx, cy = cflow[:, 0:1], cflow[:, 1:2]
+    # d(corner weight)/d flow along cflow, corners 00, 01, 10, 11.
+    dweights = (-cx * wy0 - cy * wx0, cx * wy0 - cy * wx1, -cx * wy1 + cy * wx0,
+                cx * wy1 + cy * wx1)
+    gx = torch.zeros(b, c, h * w, dtype=x.dtype, device=x.device)
+    for dw, idx, inside in zip(dweights, idxs, masks):
+        src = (grad_out * dw * inside).reshape(b, c, h * w)
+        gx.scatter_add_(2, idx.expand(b, c, h * w), src)
+    return gx.reshape(b, c, h, w), gflow
 
 
 def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

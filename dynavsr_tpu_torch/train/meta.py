@@ -10,11 +10,21 @@ The fast weights are a dict of tensors run through the module with
 `torch.func.functional_call`. The inner gradient is
 `torch.autograd.grad(..., create_graph=not first_order)`: second order
 differentiates through the inner backward, which on the card is the DCN's
-K1-K3 and K8-K10 (ops/dcn.py). `first_order` detaches the inner gradient
-(FOMAML), as the JAX package's stop_gradient does. `use_remat` runs the
-inner forward under `torch.utils.checkpoint(use_reentrant=False)`: its
-activations are recomputed in the backward instead of kept, as
-jax.checkpoint does.
+K1-K3 and K8-K10 (ops/dcn.py), the warp's K4 / K5 and K11 / K12
+(ops/grid_sample.py) and the dynamic filter's K6 / K7 (ops/duf_filter.py).
+`first_order` detaches the inner gradient (FOMAML), as the JAX package's
+stop_gradient does. `use_remat` runs the inner forward under
+`torch.utils.checkpoint(use_reentrant=False)`: its activations are
+recomputed in the backward instead of kept, as jax.checkpoint does.
+
+What is differentiated is the JAX package's: its meta step takes the
+gradient over the whole flax variables dict, so for the BatchNorm nets (TOF,
+DUF, whose meta forwards run in eval mode) the running means and variances
+get meta gradients, move by the inner SGD step and take the outer
+optimizer's step like any weight (`meta_variables`). Here they stay buffers
+under torch's keys: the step differentiates leaf copies of them and hands
+the optimizer their gradients; the eval BatchNorm takes its written-out
+formula for statistics that require grad (models/arch_util.py).
 """
 
 from __future__ import annotations
@@ -30,7 +40,8 @@ from torch.utils.checkpoint import checkpoint
 from dynavsr_tpu_torch.train.losses import charbonnier_loss
 from dynavsr_tpu_torch.train.trainer import apply_update
 
-__all__ = ["MetaConfig", "adapted_params", "meta_loss", "make_meta_train_step"]
+__all__ = ["MetaConfig", "meta_variables", "adapted_params", "meta_loss",
+           "make_meta_train_step"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,6 +54,20 @@ class MetaConfig:
     pixel_weight: float = 1.0
     reduction: str = "mean"
     use_remat: bool = True
+
+
+def meta_variables(model: nn.Module) -> Params:
+    """What the meta gradient differentiates and the outer optimizer steps,
+    name -> tensor: the trainable parameters, then every BatchNorm's running
+    mean and variance (flax's `batch_stats`; not num_batches_tracked), as
+    the JAX package's meta step takes the whole variables dict."""
+    out = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm) and mod.track_running_stats:
+            prefix = f"{name}." if name else ""
+            out[f"{prefix}running_mean"] = mod.running_mean
+            out[f"{prefix}running_var"] = mod.running_var
+    return out
 
 
 class _Applied(nn.Module):
@@ -75,8 +100,9 @@ def adapted_params(model: nn.Module, params: Params, slr: torch.Tensor,
     """k inner SGD steps on the (SLR windows -> LR centres) pseudo-task.
 
     slr (B, N, h/s, w/s, 3); lr_center (B, h, w, 3); params: name ->
-    tensor, as model.named_parameters(). Returns the fast weights and the
-    last inner loss (before its step). apply_fn(net, x) overrides
+    tensor, as meta_variables(model) (parameters and BatchNorm running
+    statistics; each that requires grad moves). Returns the fast weights
+    and the last inner loss (before its step). apply_fn(net, x) overrides
     net(x), e.g. a mod-padded forward (models/padding.make_model_apply),
     since SLR = LR / s is generally not pyramid-divisible."""
     fwd = _forward(model, apply_fn)
@@ -132,16 +158,23 @@ def make_meta_train_step(model: nn.Module, cfg: MetaConfig, optimizer: torch.opt
     net(x) for both the inner and the outer forward.
 
     metrics (0-d tensors): l_outer, l_inner and grad_norm (the global norm
-    of the meta gradient, before any clip)."""
-    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    of the meta gradient, before any clip). `optimizer` holds
+    meta_variables(model), the BatchNorm statistics included; their
+    gradients come from leaf copies that require grad, and a variable the
+    loss does not reach gets a zero gradient, as in JAX."""
+    names = list(meta_variables(model))
 
     def step(batch: Mapping[str, torch.Tensor], count: int) -> Dict[str, torch.Tensor]:
-        named = dict(model.named_parameters())
-        params = {k: named[k] for k in names}
+        held = meta_variables(model)
+        held = [held[k] for k in names]
+        leaves = {k: t if t.requires_grad else t.detach().requires_grad_()
+                  for k, t in zip(names, held)}
         optimizer.zero_grad(set_to_none=True)
-        outer, inner = meta_loss(model, params, batch, cfg, apply_fn)
-        outer.backward()
-        gnorm = apply_update(optimizer, list(params.values()), sched(count), grad_clip)
+        outer, inner = meta_loss(model, leaves, batch, cfg, apply_fn)
+        grads = torch.autograd.grad(outer, list(leaves.values()), allow_unused=True)
+        for t, g in zip(held, grads):
+            t.grad = torch.zeros_like(t) if g is None else g
+        gnorm = apply_update(optimizer, held, sched(count), grad_clip)
         return {"l_outer": outer.detach(), "l_inner": inner.detach(), "grad_norm": gnorm}
 
     return step

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's warp and DUF kernels (K4-K7) on one card, apart from
-their wrappers.
+"""Time the port's warp and DUF kernels (K4-K7, and the warp's second
+order K11 / K12) on one card, apart from their wrappers.
 
     python3 kernel_times.py [--root DIR] [--tag NAME] [--out FILE]
 
@@ -148,9 +148,9 @@ def main() -> None:
         rows.append(row)
         print(json.dumps(row))
 
-    def timed(name, label, fn, nbytes, kernel):
+    def timed(name, label, fn, nbytes, kernel, rtol=0.0):
         ms = event_ms(fn)
-        kernel_ms, seen = graph_ms(fn, kernel=kernel)
+        kernel_ms, seen = graph_ms(fn, kernel=kernel, rtol=rtol)
         if seen not in (0, REPS):  # 0: the profiler sees no kernel inside a graph
             raise RuntimeError(f"{name} {label}: the graph holds {seen} launches, not {REPS}")
         bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -173,6 +173,24 @@ def main() -> None:
         x, flow, _ = warp_inputs(8, 3, h, w)
         timed("warp_fwd", f"8x{h}x{w}", lambda: warp.warp_fwd(x, flow), 8 * h * w * 8 * 4,
               "warp_fwd_kernel")
+
+    # K11 / K12 at TOF's meta-training calls (8 windows): the inner step's
+    # SLR pre-upscaled to 64x64 (where a meta update runs them) and the outer
+    # 256x256; K12 also with grad x, summed with atomics.
+    if hasattr(warp, "warp_fwd_tangent"):  # an older checkout (--root) has none
+        for h, w in ((64, 64), (256, 256)):
+            x, flow, cot = warp_inputs(8, 3, h, w)
+            cflow = torch.randn(8, 2, h, w, generator=gen, device="cuda")
+            px = 8 * h * w
+            timed("warp_fwd_tangent", f"meta 8x{h}x{w}",
+                  lambda: warp.warp_fwd_tangent(x, flow, cflow), px * (2 * 3 + 4) * 4,
+                  "warp_fwd_tangent_kernel")
+            timed("warp_bwd_tangent", f"meta 8x{h}x{w}",
+                  lambda: warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=False),
+                  px * (2 * 3 + 6) * 4, "warp_bwd_tangent_kernel")
+            timed("warp_bwd_tangent", f"meta 8x{h}x{w} +grad x",
+                  lambda: warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=True),
+                  px * (3 * 3 + 6) * 4, "warp_bwd_tangent_kernel", rtol=1e-5)
 
     # K5's wrapper, piece by piece, at the adaptation call 8x3x144x176.
     x, flow, cot = warp_inputs(8, 3, 144, 176)

@@ -1,12 +1,15 @@
 """Second order through the port's kernel Functions, on CPU.
 
 The kernels fill their gradients through ctypes, so those gradients carry
-no graph. `WarpFunction` (K4/K5) and `DufFilterFunction` (K6/K7) raise on a
-`create_graph=True` backward instead of losing every second-order term
-that passes through a kernel. `DeformConv2dFunction` (K1-K3) carries its
-second order through `DcnBwdDataFunction` / `DcnBwdWeightFunction`, whose
-backward is K1-K3 again plus K8-K10 (ops/dcn.py); its third backward
-raises. Each case takes
+no graph. Each Function carries its second order through a Function of its
+backward kernel: `DeformConv2dFunction` (K1-K3) through
+`DcnBwdDataFunction` / `DcnBwdWeightFunction`, whose backward is K1-K3
+again plus K8-K10 (ops/dcn.py); `WarpFunction` (K4/K5) through
+`WarpBwdFunction`, whose backward is K4/K5 plus K11/K12
+(ops/grid_sample.py); `DufFilterFunction` (K6/K7) through
+`DufBwdFunction`, whose backward is K6/K7 with their inputs swapped
+(ops/duf_filter.py). A third backward raises instead of losing every term
+that passes through a kernel. Each case takes
 `loss = sum(op(theta)^2) + sum(theta^3)`: theta reaches the loss through the
 op and through a plain path, so `torch.autograd.grad(..., inputs=theta)`
 still has an edge to theta when the op's gradient has none (a
@@ -20,15 +23,15 @@ dropped silently).
   1e-4 of the largest reference value.
 - Through `Function.apply`, with the ctypes launchers replaced by stand-ins
   built from the plain versions that, like the kernels, return values
-  without a graph: the first-order gradient equals the plain op's (1e-6 of
-  the largest value: the same arithmetic). For the warp and the filter,
-  `create_graph=True` raises a RuntimeError that names the kernel. For the
-  DCN, K1-K3 and K8-K10 are replaced (K8-K10 by their explicit formulas,
-  ops/dcn_ref.py), so the grad-of-grad tests the second-order
-  decomposition of ops/dcn.py: it equals plain autograd's within 1e-5 of
-  the largest value (fp32 sums in another order), both with the offsets
-  alone and with every input of the DCN differentiated, with and without
-  a mask; and a third backward raises.
+  without a graph (K8-K12 by their explicit formulas, ops/dcn_ref.py and
+  ops/grid_sample_ref.py): the first-order gradient equals the plain op's
+  (1e-6 of the largest value: the same arithmetic), and the grad-of-grad,
+  which tests each second-order decomposition, equals plain autograd's
+  within 1e-5 of the largest value (fp32 sums in another order); a third
+  backward raises a RuntimeError that names the kernels. For the DCN also
+  with every input differentiated, with and without a mask
+  (test_torch_port_second_order.py does the same for the warp and the
+  filter).
 """
 
 import jax
@@ -136,12 +139,24 @@ def _stand_ins(op, monkeypatch):
             grads = iter(torch.autograd.grad(out, wrt, grad_out.detach()))
         return [next(grads) if n else None for n in need]
 
+    def detached(fn):
+        def call(*args, **kwargs):
+            with torch.no_grad():
+                out = fn(*args, **kwargs)
+            return out.detach() if torch.is_tensor(out) else tuple(
+                None if t is None else t.detach() for t in out)
+        return call
+
     if op == "warp":
-        monkeypatch.setattr(warp, "warp_fwd", grid_sample_ref.warp_nchw)
+        monkeypatch.setattr(warp, "warp_fwd", detached(grid_sample_ref.warp_nchw))
         monkeypatch.setattr(warp, "warp_bwd", lambda x, flow, grad_out, need_x: tuple(vjp(
             grid_sample_ref.warp_nchw, (x, flow), (need_x, True), grad_out)))
+        monkeypatch.setattr(warp, "warp_fwd_tangent",
+                            detached(grid_sample_ref.warp_fwd_tangent_ref))
+        monkeypatch.setattr(warp, "warp_bwd_tangent",
+                            detached(grid_sample_ref.warp_bwd_tangent_ref))
     elif op == "duf":
-        monkeypatch.setattr(duf_filter, "duf_fwd", dynamic_upsampling_filter_ref)
+        monkeypatch.setattr(duf_filter, "duf_fwd", detached(dynamic_upsampling_filter_ref))
         monkeypatch.setattr(duf_filter, "duf_bwd", lambda x, f, grad_out, need_x: tuple(vjp(
             dynamic_upsampling_filter_ref, (x, f), (need_x, True), grad_out)))
     else:
@@ -160,14 +175,6 @@ def _stand_ins(op, monkeypatch):
             w = x.new_zeros(grad_out.shape[1], x.shape[1], 3, 3)  # grad weight is linear
             return vjp(plain(gd), (x, offset, mask, w), (False, False, False, True), grad_out)[3]
 
-        def detached(fn):
-            def call(*args):
-                with torch.no_grad():
-                    out = fn(*args)
-                return out.detach() if torch.is_tensor(out) else tuple(
-                    None if t is None else t.detach() for t in out)
-            return call
-
         monkeypatch.setattr(dcn, "_fwd", detached(fwd))
         monkeypatch.setattr(dcn, "dcn_bwd_data", bwd_data)
         monkeypatch.setattr(dcn, "dcn_bwd_weight", bwd_weight)
@@ -176,8 +183,14 @@ def _stand_ins(op, monkeypatch):
         monkeypatch.setattr(dcn, "dcn_bwd_data_tangent", detached(dcn_bwd_data_tangent_ref))
 
 
+# The kernels a third backward through each Function names.
+THIRD = {"dcn": "K8-K10", "warp": "K11, K12", "duf": "K6, K7"}
+
+
 @pytest.mark.parametrize("op", ["dcn", "warp", "duf"])
 def test_double_backward_through_the_kernel_function_raises(op, monkeypatch):
+    """The second order through the Function equals plain autograd's; the
+    third backward raises."""
     case = _case(op, seed=12)
     _stand_ins(op, monkeypatch)
     t = case["theta"].clone().requires_grad_()
@@ -186,20 +199,13 @@ def test_double_backward_through_the_kernel_function_raises(op, monkeypatch):
     (want,) = torch.autograd.grad(_loss(case["plain"](tr), tr), tr)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
 
-    if op == "dcn":  # second order through K1-K3 and K8-K10; the third raises
-        got = _grad_of_grad(case["function"], case["theta"])
-        want = _grad_of_grad(case["plain"], case["theta"])
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
-        t = case["theta"].clone().requires_grad_()
-        (g,) = torch.autograd.grad(_loss(case["function"](t), t), t, create_graph=True)
-        with pytest.raises(RuntimeError, match="double backward.*K8-K10.*second-order"):
-            torch.autograd.grad(g.sum(), t, create_graph=True)
-        return
+    got = _grad_of_grad(case["function"], case["theta"])
+    want = _grad_of_grad(case["plain"], case["theta"])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
     t = case["theta"].clone().requires_grad_()
-    loss = _loss(case["function"](t), t)
-    kernel = {"warp": "K5", "duf": "K7"}[op]
-    with pytest.raises(RuntimeError, match=f"double backward.*{kernel}.*second-order"):
-        torch.autograd.grad(loss, t, create_graph=True)
+    (g,) = torch.autograd.grad(_loss(case["function"](t), t), t, create_graph=True)
+    with pytest.raises(RuntimeError, match=f"double backward.*{THIRD[op]}.*second-order"):
+        torch.autograd.grad(g.sum(), t, create_graph=True)
 
 
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])

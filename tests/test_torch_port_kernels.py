@@ -3,9 +3,10 @@ DCN's K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight (ops/dcn_ref.py),
 the terms of its second order along an offset cotangent, K8
 dcn_fwd_tangent, K9 dcn_bwd_weight_tangent and K10 dcn_bwd_data_tangent
 (ops/dcn_ref.py's *_tangent_ref, fp32 only),
-the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py),
-and DUF's dynamic upsampling filter K6 duf_fwd and K7 duf_bwd
-(ops/duf_filter_ref.py).
+the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py)
+and its second order's K11 warp_fwd_tangent and K12 warp_bwd_tangent
+(grid_sample_ref's *_tangent_ref), and DUF's dynamic upsampling filter K6
+duf_fwd and K7 duf_bwd (ops/duf_filter_ref.py).
 
 Every test here is gpu-marked and skips without a card. This file imports no JAX, so on
 the card it runs without the repository's conftest:
@@ -24,7 +25,8 @@ summation order and the final rounding differ, so 2^-8 for K1, and 2^-8
 plus the fp32 tolerance for K2 and K3, whose atomics sum in any order. Warp
 (fp32 only): forward 1e-5 of the largest reference value (the same four
 products, maybe fused into FMAs); grad flow and grad x 1e-4 (grad x lands
-with atomics, in another order). DUF filter: 1e-5 of the largest
+with atomics, in another order); K11 1e-5, K12 1e-4 (a sum over channels,
+grad x by atomics). DUF filter: 1e-5 of the largest
 reference value (fp32 sums of 25 or 25 R products in another order); bf16
 filters get their gradient rounded to bf16 on both sides, where the same
 sum may land one bf16 step apart, so grad filters there 2^-7 of the value
@@ -331,8 +333,36 @@ def test_warp_kernel_far_outside_positions_give_exact_zeros(cuda):
     flow[0, 0], flow[0, 1], flow[1, 0], flow[1, 1] = 1e30, -1e30, -1e30, 3e9
     out = warp.warp_fwd(x, flow)
     gx, gf = warp.warp_bwd(x, flow, cot, need_x=True)
+    tangent = warp.warp_fwd_tangent(x, flow, torch.ones_like(flow))
+    tx, tf = warp.warp_bwd_tangent(x, flow, cot, torch.ones_like(flow), need_x=True)
     torch.cuda.synchronize()
     assert not out.any() and not gx.any() and not gf.any()
+    assert not tangent.any() and not tx.any() and not tf.any()
+
+
+# TOF's meta-training warps (8 windows x 3 channels at the inner step's 64x64
+# and the outer 256x256, SpyNet's coarser levels) and small edge shapes (odd
+# widths take the scalar path).
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 3, 64, 64), (8, 3, 256, 256), (8, 3, 8, 8),
+                                   (2, 3, 13, 21), (3, 5, 7, 9), (2, 3, 9, 1)],
+                         ids=["meta64", "meta256", "meta8", "c3", "c5", "w1"])
+@pytest.mark.parametrize("need_x", [True, False], ids=["grad_x", "flow_only"])
+def test_warp_tangent_kernels_match_plain(cuda, shape, need_x):
+    """K11 and K12 against their explicit plain formulas on white-noise
+    flows (some on integer positions) and tangents."""
+    x, flow, cot = _warp_inputs(*shape, cuda, seed=sum(shape) + 1)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cflow = torch.randn(flow.shape, generator=g).to(cuda)
+    got = warp.warp_fwd_tangent(x, flow, cflow)
+    gx, gf = warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=need_x)
+    want_gx, want_gf = grid_sample_ref.warp_bwd_tangent_ref(x, flow, cot, cflow, need_x)
+    torch.cuda.synchronize()
+    _close(got, grid_sample_ref.warp_fwd_tangent_ref(x, flow, cflow), 1e-5)
+    _close(gf, want_gf, 1e-4)
+    assert (gx is None) == (not need_x)
+    if need_x:
+        _close(gx, want_gx, 1e-4)
 
 
 @pytest.mark.gpu
@@ -343,17 +373,18 @@ def test_warp_autograd_goes_through_the_kernels(cuda):
     f = flow.clone().requires_grad_()
     warp.reset_launch_counts()
     warp.warp_nchw(x, f).backward(cot)
-    assert warp.launch_counts() == {"warp_fwd": 1, "warp_bwd": 1}
+    first = {"warp_fwd_tangent": 0, "warp_bwd_tangent": 0}
+    assert warp.launch_counts() == {"warp_fwd": 1, "warp_bwd": 1, **first}
     _, ref_gx, ref_gf = _plain_warp_grads(x, flow, cot)
     _close(f.grad, ref_gf, 1e-4)
     xs, fs = (t.permute(0, 2, 3, 1).clone().requires_grad_() for t in (x, flow))
     warp.flow_warp(xs, fs).backward(cot.permute(0, 2, 3, 1))
-    assert warp.launch_counts() == {"warp_fwd": 2, "warp_bwd": 2}
+    assert warp.launch_counts() == {"warp_fwd": 2, "warp_bwd": 2, **first}
     _close(xs.grad.permute(0, 3, 1, 2), ref_gx, 1e-4)
     _close(fs.grad.permute(0, 3, 1, 2), ref_gf, 1e-4)
     with torch.no_grad():
         warp.warp_nchw(x, flow)
-    assert warp.launch_counts() == {"warp_fwd": 3, "warp_bwd": 2}
+    assert warp.launch_counts() == {"warp_fwd": 3, "warp_bwd": 2, **first}
 
 
 @pytest.mark.gpu
@@ -538,22 +569,11 @@ def _second_order_case(op, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", ["dcn", "warp", "duf"])
 def test_double_backward_through_the_kernels_raises(cuda, op):
-    """K4-K7's gradients carry no graph, so a create_graph=True gradient
-    through them raises (its second-order terms would be lost); a
-    first-order gradient of the same loss runs. The DCN's second order
-    runs through K1-K3 and K8-K10: its grad-of-grad matches plain
-    autograd's (1e-4 of the largest value, fp32 atomics), launching K8-K10
-    once each, and its third backward raises."""
+    """The second order through the kernels: the grad-of-grad matches plain
+    autograd's (1e-4 of the largest value, fp32 atomics), launching the
+    tangent kernels where the op has them (the DCN's K8 and K10, the
+    warp's K11 and K12, once each), and the third backward raises."""
     fn, theta = _second_order_case(op, cuda)
-    t = theta.clone().requires_grad_()
-    (g,) = torch.autograd.grad((fn(t) ** 2).sum() + (t ** 3).sum(), t)
-    assert torch.isfinite(g).all()
-    t = theta.clone().requires_grad_()
-    loss = (fn(t) ** 2).sum() + (t ** 3).sum()
-    if op != "dcn":
-        with pytest.raises(RuntimeError, match="double backward.*second-order"):
-            torch.autograd.grad(loss, t, create_graph=True)
-        return
     x, _, mask, weight, bias, _ = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=7)
 
     def first(f):
@@ -565,16 +585,26 @@ def test_double_backward_through_the_kernels_raises(cuda, op):
         tt, gg = first(f)
         return torch.autograd.grad(gg.sum(), tt)[0]
 
-    dcn.reset_launch_counts()
+    if op == "warp":
+        wx = _warp_inputs(2, 3, 8, 12, cuda, seed=7)[0]
+        plain = lambda t: grid_sample_ref.warp_nchw(wx, t)  # noqa: E731
+    elif op == "duf":
+        dx = _duf_inputs(2, 3, 4, 8, 12, torch.float32, cuda, seed=7)[0]
+        plain = lambda t: dynamic_upsampling_filter_ref(dx, t)  # noqa: E731
+    else:
+        plain = lambda o: deform_conv2d_ref(x, o, mask, weight, bias,  # noqa: E731
+                                            deformable_groups=2)
+    for module in (dcn, warp, duf_filter):
+        module.reset_launch_counts()
     got = grad_of_grad(fn)
-    counts = dcn.launch_counts()
-    want = grad_of_grad(lambda o: deform_conv2d_ref(x, o, mask, weight, bias,
-                                                     deformable_groups=2))
-    _close(got, want, 1e-4)
-    # Only the offsets and grad_out need gradients here: K8 and K10, no K9.
-    assert {k: counts[k] for k in ("dcn_fwd_tangent", "dcn_bwd_weight_tangent",
-                                   "dcn_bwd_data_tangent")} == {
-        "dcn_fwd_tangent": 1, "dcn_bwd_weight_tangent": 0, "dcn_bwd_data_tangent": 1}, counts
+    counts = {**dcn.launch_counts(), **warp.launch_counts()}
+    _close(got, grad_of_grad(plain), 1e-4)
+    tangents = {"dcn": {"dcn_fwd_tangent": 1, "dcn_bwd_weight_tangent": 0,
+                        "dcn_bwd_data_tangent": 1},
+                "warp": {"warp_fwd_tangent": 1, "warp_bwd_tangent": 1}}.get(op, {})
+    # Only theta and grad_out need gradients here: the DCN's K8 and K10, no K9.
+    assert {k: counts[k] for k in tangents} == tangents, counts
     tt, gg = first(fn)
-    with pytest.raises(RuntimeError, match="double backward.*K8-K10.*second-order"):
+    third = {"dcn": "K8-K10", "warp": "K11, K12", "duf": "K6, K7"}[op]
+    with pytest.raises(RuntimeError, match=f"double backward.*{third}.*second-order"):
         torch.autograd.grad(gg.sum(), tt, create_graph=True)

@@ -23,7 +23,8 @@ a seed. Both forwards run through each side's make_model_apply.
 - use_remat (torch.utils.checkpoint) on and off give the same second-order
   meta gradient (1e-6 of its largest value).
 - MetaModel, fed the batch as numpy, takes the same first step as JAX's
-  second-order step; bf16 EDVR and second-order TOF / DUF raise.
+  second-order step; bf16 EDVR raises, and second-order TOF / DUF build
+  (test_torch_port_meta_tof.py / _duf.py hold them against JAX).
 - One meta update through DeformConv2dFunction, its launchers replaced by
   plain stand-ins that count (test_torch_port_double_backward.py's), makes
   the launches chip_smoke.py phase 10 checks on the card.
@@ -227,15 +228,24 @@ def test_meta_model_with_a_fed_batch_matches_jax(setup, jax_steps, tmp_path):
 
 
 def test_meta_model_refuses_what_has_no_second_order_kernels(tmp_path):
+    """A bf16 second order through the DCN or the dynamic filter raises
+    (ROADMAP A.7); TOF and DUF build to second order, TOF in bf16 too (its
+    warps stay fp32)."""
     save_network(str(tmp_path), 0, EDVR(**CFG))
     with pytest.raises(NotImplementedError, match="A.7"):
         create_model(_meta_opt(tmp_path, dtype="bfloat16"), device="cpu")
-    tof = {"name": "meta", "model": "video_meta", "scale": 4, "is_train": True,
-           "network_G": {"which_model_G": "TOF", "nframes": 3}, "path": {},
-           "train": {"first_order": False}}
+
+    def meta(net, first_order=False):
+        return {"name": "meta", "model": "video_meta", "scale": 4, "is_train": True,
+                "network_G": net, "path": {}, "train": {"first_order": first_order}}
+
+    tof, duf = {"which_model_G": "TOF", "nframes": 3}, {"which_model_G": "DUF_16L"}
+    for net in (tof, duf, {**tof, "dtype": "bfloat16"}):
+        assert not create_model(meta(net), device="cpu").meta_cfg.first_order
     with pytest.raises(NotImplementedError, match="A.7"):
-        create_model(tof, device="cpu")
-    assert create_model({**tof, "train": {"first_order": True}}, device="cpu").meta_cfg.first_order
+        create_model(meta({**duf, "dtype": "bfloat16"}), device="cpu")
+    assert create_model(meta({**duf, "dtype": "bfloat16"}, True), device="cpu"
+                        ).meta_cfg.first_order
 
 
 def test_meta_update_launches_with_the_kernel_stand_ins(setup, monkeypatch):

@@ -391,8 +391,9 @@ def test_non_strict_load_keeps_the_model_where_shapes_differ(tmp_path):
 
 def test_what_the_port_still_refuses_says_why(tmp_path):
     """Only orbax checkpoint directories, second-order meta-training where
-    the port has no double-backward kernels (TOF / DUF, bf16 EDVR),
-    multi-process launchers and eval.tile raise, each naming its ROADMAP
+    the port has no double-backward kernels (bf16 DUF and EDVR: the
+    second-order kernels take fp32), multi-process launchers and eval.tile
+    raise, each naming its ROADMAP
     item and the reason. An LMDB root now reads: a test set over one (raw
     frames with their .meta, the port's writer) gives JAX's items; the
     meta-training dataset modes build MetaVideoDataset."""
@@ -423,8 +424,9 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
                           MetaVideoDataset)
     with pytest.raises(NotImplementedError, match="not recognized"):
         create_dataset({"mode": "Kinetics", "dataroot_LQ": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="second-order.*TOF.*A.7"):
-        create_model({"model": "video_meta", "network_G": {"which_model_G": "TOF", "nframes": 3},
+    with pytest.raises(NotImplementedError, match="second-order.*DUF.*A.7"):
+        create_model({"model": "video_meta", "network_G": {"which_model_G": "DUF_16L",
+                                                            "dtype": "bfloat16"},
                       "train": {"first_order": False}}, device="cpu")
     with pytest.raises(NotImplementedError, match="bfloat16.*A.7"):
         create_model({"model": "video_meta", "network_G": {

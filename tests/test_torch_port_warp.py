@@ -141,8 +141,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ft = torch.from_numpy(flow).permute(0, 3, 1, 2).contiguous()
     out = tgs.warp_nchw(xt, ft)
     np.testing.assert_array_equal(out.numpy(), grid_sample_ref.warp_nchw(xt, ft).numpy())
-    assert tgs.launch_counts() == {"warp_fwd": 0, "warp_bwd": 0}
+    assert tgs.launch_counts() == {"warp_fwd": 0, "warp_bwd": 0, "warp_fwd_tangent": 0,
+                                   "warp_bwd_tangent": 0}
     with pytest.raises(ValueError, match="CUDA"):
         tgs.warp_fwd(xt, ft)
     with pytest.raises(ValueError, match="CUDA"):
         tgs.warp_bwd(xt, ft, xt, need_x=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgs.warp_fwd_tangent(xt, ft, ft)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgs.warp_bwd_tangent(xt, ft, xt, ft, need_x=True)
