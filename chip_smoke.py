@@ -140,9 +140,11 @@ Phases; any failure raises and exits non-zero:
               the offset convs redrawn N(0, 0.05) so samples fall off the
               pixel grid's kinks (10c's own ~1e-4 px offsets are read and
               reported too); K8-K10
-              timed on the meta update's own inputs (their largest call,
-              40 SLR frames of 16x16) with their bounds; 2 meta updates
-              profiled. Prints a `[meta] {json}` line.
+              timed on the meta update's own inputs (each call size: 40
+              SLR frames of 16x16, 8x8 and 4x4) with their bounds, the
+              graph replays of K8 and of K10's offset and mask gradients
+              checked bitwise; 2 meta updates profiled. Prints a `[meta]
+              {json}` line.
  11. meta2    second-order meta-training of the BatchNorm backbones
               through cli/train.train at full width, on 10a's LMDB with
               10a's 7-frame MFDN as network_E, from random weights, 6
@@ -163,8 +165,13 @@ Phases; any failure raises and exits non-zero:
               of the gradient, for TOF with SpyNet's last-conv biases
               redrawn N(0, 0.1) so the flows sit off the pixel grid (the
               trained weights' reading is reported too); K11 / K12 timed on
-              the inputs of their largest call. Prints a `[meta2] {json}`
-              line.
+              the inputs of their largest call. 11d (TOF): over 16 draws of
+              SpyNet's last-conv biases, the warp's first- and second-order
+              terms on every warp call of one LR window's forward, plain
+              warp and K4 / K5 / K11 / K12 in fp32 against the plain warp
+              in float64, beside the share of samples on and within one
+              fp32 ulp of a bilinear kink (reported, not checked). Prints a
+              `[meta2] {json}` line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -296,10 +303,11 @@ DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
 # Device kernels a wrapper launches besides `<name>_kernel`, counted in its
 # profiled time (not in its launches): K1's channels-last copy of x; K2's
 # zero-fill of its grad x scratch and the transpose to NCHW; K3's zero-fill
-# of its scratch and the write-out as OIHW.
+# of its scratch and the write-out as OIHW; K8's sum of its tap splits.
 PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",),
              "dcn_bwd_data": ("bwd::gx_zero", "bwd::gx_to_nchw"),
-             "dcn_bwd_weight": ("bwd::gw_zero", "bwd::gw_to_oihw")}
+             "dcn_bwd_weight": ("bwd::gw_zero", "bwd::gw_to_oihw"),
+             "dcn_fwd_tangent": ("tng::sum_parts",)}
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
 DUF_KERNELS = ("duf_fwd", "duf_bwd")
 # The K4-K7 wrappers by module: the profile splits their time by call size.
@@ -322,13 +330,13 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def wrapper_times(launch, bound_ms: float, rtol: float = 0.0) -> dict:
-    """A K4-K10 wrapper call's times: `ms`, CUDA events around 20 calls (the
+def wrapper_times(launch, bound_ms: float, rtol=0.0) -> dict:
+    """A K4-K12 wrapper call's times: `ms`, CUDA events around 20 calls (the
     number the earlier rows hold; for a call of a few us it is the host's);
     `kernel_ms`, one launch's device time from a CUDA graph of 20 calls
     (whose last output is checked after a replay, within `rtol` where the
-    kernel sums with atomics); `host_us`, one call's host time; and both
-    roofline shares of `bound_ms`."""
+    kernel sums with atomics, one per output where a sequence); `host_us`,
+    one call's host time; and both roofline shares of `bound_ms`."""
     ms, kernel_ms = cuda_ms(launch, reps=REPS), graph_ms(launch, rtol=rtol)[0]
     return dict(ms=ms, kernel_ms=kernel_ms, host_us=host_us(launch), roofline=bound_ms / ms,
                 kernel_roofline=bound_ms / kernel_ms)
@@ -1732,6 +1740,8 @@ DOWN_RUNS = {"10a": dict(which="MFDN", niter=8, save=4),
              "10b": dict(which="SFDN", niter=4, save=None)}
 META_NITER, META_SAVE, META_BATCH = 6, 3, 8
 TANGENT_KERNELS = ("dcn_fwd_tangent", "dcn_bwd_weight_tangent", "dcn_bwd_data_tangent")
+TANGENT_RTOL = {"dcn_fwd_tangent": 0.0, "dcn_bwd_weight_tangent": 1e-5,
+                "dcn_bwd_data_tangent": (1e-5, 0.0, 0.0)}
 # K1-K3 and K8-K10 a meta update (4 DCNs in PCD; the inner forward is
 # recomputed twice under remat): the count the CPU test
 # test_torch_port_meta.py::test_meta_update_launches_with_the_kernels_stand_ins holds.
@@ -1895,11 +1905,13 @@ PLAIN_DCN_CALLS = {
 }
 
 
-def checked_calls(run, module, plain: dict, keep=()) -> tuple:
+def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False) -> tuple:
     """Run `run()` with every call of `module`'s wrappers named in `plain`
     held against plain[name] on the same inputs as it happens (phase 3's
     tolerance: 1e-4 of the plain result's largest value); returns one row a
-    call, and the arguments of the largest call of each wrapper in `keep`."""
+    call, and the arguments of the largest call of each wrapper in `keep`
+    (with `by_shape`, of its first call at each input shape, keyed (name,
+    shape))."""
     rows, kept = [], {}
     orig = {n: getattr(module, n) for n in plain}
 
@@ -1915,8 +1927,10 @@ def checked_calls(run, module, plain: dict, keep=()) -> tuple:
             rows.append(dict(name="dcn_fwd" if name == "_fwd" else name,
                              dims=list(args[0].shape), max_abs_err=err, tol=1e-4 * scale,
                              ok=err <= 1e-4 * scale))
-            if name in keep and (name not in kept or args[0].numel() > kept[name][0].numel()):
-                kept[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            key = (name, tuple(args[0].shape)) if by_shape else name
+            if name in keep and (key not in kept or (
+                    not by_shape and args[0].numel() > kept[key][0].numel())):
+                kept[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
             return out
         return call
 
@@ -2142,7 +2156,7 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
     model.feed_data(batch)
     model.optimize_parameters()  # warm-up (builds the step)
     calls, keep = checked_calls(model.optimize_parameters, dcn, PLAIN_DCN_CALLS,
-                                keep=TANGENT_KERNELS)
+                                keep=TANGENT_KERNELS, by_shape=True)
     by_kernel = {}
     for r in calls:
         n, e = by_kernel.get(r["name"], (0, 0.0))
@@ -2156,9 +2170,11 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
     out["10d"] = dict(calls=len(calls), by_kernel=by_kernel)
 
     rows = []
-    for name in TANGENT_KERNELS:
-        args = keep[name]
-        shape, gd = tuple(args[0].shape), args[-1]
+    # Each K8-K10 call size of the meta update: the inner step's pyramid
+    # levels, 40 SLR frames of 16x16 (L1 and the cascade), 8x8 and 4x4.
+    for name, shape in sorted(keep, key=lambda k: (TANGENT_KERNELS.index(k[0]), -k[1][2])):
+        args = keep[(name, shape)]
+        gd = args[-1]
         fn = {"dcn_fwd_tangent": dcn.dcn_fwd_tangent,
               "dcn_bwd_weight_tangent": dcn.dcn_bwd_weight_tangent,
               "dcn_bwd_data_tangent": dcn.dcn_bwd_data_tangent}[name]
@@ -2171,7 +2187,9 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
         got = [got] if torch.is_tensor(got) else [t for t in got if t is not None]
         want = [want] if torch.is_tensor(want) else [t for t in want if t is not None]
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        t = wrapper_times(lambda: fn(*args), bound_ms, rtol=1e-5)
+        # Graph replays: K8 and K10's offset / mask gradients bitwise, grad x
+        # (K10) and K9 by atomics within 1e-5.
+        t = wrapper_times(lambda: fn(*args), bound_ms, rtol=TANGENT_RTOL[name])
         plain_ms = cuda_ms(lambda: ref(*args), reps=3, warmup=1)
         label = dcn_label("meta", shape)
         row = dict(name=name, label=label, dims=list(shape), gd=gd, dtype="float32",
@@ -2348,8 +2366,103 @@ def tangent_timing_row(name, args, smi: str) -> dict:
     return row
 
 
+KINK_DRAWS = 16  # SpyNet bias draws of 11d's probe
+
+
+def warp_terms(fn, x, flow, g, v):
+    """The warp's first-order term, grad flow of <g, warp(x, flow)>, and its
+    second-order term along v, the gradient in (x, flow) of <grad flow, v>
+    (K4 / K5, then K11 / K12 through the port's Function; the plain warp's
+    double autograd otherwise), each flattened."""
+    with torch.enable_grad():
+        xr, fr = x.detach().requires_grad_(), flow.detach().requires_grad_()
+        (gf,) = torch.autograd.grad((fn(xr, fr) * g).sum(), fr, create_graph=True)
+        tx, tf = torch.autograd.grad((gf * v).sum(), [xr, fr])
+    return gf.detach().flatten(), torch.cat([tx.flatten(), tf.flatten()])
+
+
+def kink_probe(model, batch, gen: torch.Generator) -> dict:
+    """11d, ROADMAP C's probe of the fp32 second-order term: over
+    KINK_DRAWS draws of SpyNet's last-conv biases N(0, SPY_BIAS_STD) (11c's
+    redraw), every warp call of TOF's forward on one LR window, recorded;
+    on each, the warp's first- and second-order terms along random (g, v)
+    (warp_terms) from the plain warp in fp32, from the kernels (K4 / K5 /
+    K11 / K12) in fp32, and from the plain warp in float64 on the same
+    inputs: each fp32 term's distance to the float64 one (relative norm
+    over the draw's calls), beside the share of sample coordinates (pixel +
+    flow, in float64) that lie exactly on a bilinear kink (an integer) and
+    that lie within one fp32 ulp of one without being on it (where fp32
+    rounding can move the sample across the kink). The weights are
+    restored after. Reported, not checked."""
+    redrawn = {n: p for n, p in model.netG.named_parameters()
+               if n.startswith("spynet.block") and n.endswith("conv4.bias")}
+    own = {n: p.detach().clone() for n, p in redrawn.items()}
+    apply, lr = make_model_apply("TOF", SCALE), batch["LR"][:1]
+    eps = torch.finfo(torch.float32).eps
+    calls, rows = [], []
+
+    def recording(x, flow):
+        calls.append((x.detach(), flow.detach()))
+        return warp.warp_nchw(x, flow)
+
+    t0 = time.perf_counter()
+    try:
+        for d in range(KINK_DRAWS):
+            with torch.no_grad():
+                for p in redrawn.values():
+                    p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * SPY_BIAS_STD)
+            calls.clear()
+            tof_module.warp_nchw = recording
+            try:
+                with torch.no_grad():
+                    apply(model.netG, lr)
+            finally:
+                tof_module.warp_nchw = warp.warp_nchw
+            sq = dict.fromkeys(("g64", "t64", "gp", "tp", "gk", "tk"), 0.0)
+            on = near = n = 0
+            for x, flow in calls:
+                g = torch.randn(x.shape, generator=gen, device=x.device)
+                v = torch.randn(flow.shape, generator=gen, device=x.device)
+                g64, t64 = warp_terms(grid_sample_ref.warp_nchw, x.double(), flow.double(),
+                                      g.double(), v.double())
+                for tag, fn in (("p", grid_sample_ref.warp_nchw), ("k", warp.warp_nchw)):
+                    g32, t32 = warp_terms(fn, x, flow, g, v)
+                    sq["g" + tag] += float((g32.double() - g64).square().sum())
+                    sq["t" + tag] += float((t32.double() - t64).square().sum())
+                sq["g64"] += float(g64.square().sum())
+                sq["t64"] += float(t64.square().sum())
+                for pos in grid_sample_ref.flow_grid(flow.double()):
+                    dist = (pos - pos.round()).abs()
+                    on += int((dist == 0).sum())
+                    near += int(((dist > 0) & (dist <= eps * pos.abs().clamp(min=1.0))).sum())
+                    n += pos.numel()
+            rows.append(dict(draw=d, calls=len(calls), coords=n, on_kink=on / n,
+                             near_kink=near / n,
+                             grad_plain_vs_f64=math.sqrt(sq["gp"] / sq["g64"]),
+                             grad_kernel_vs_f64=math.sqrt(sq["gk"] / sq["g64"]),
+                             term_plain_vs_f64=math.sqrt(sq["tp"] / sq["t64"]),
+                             term_kernel_vs_f64=math.sqrt(sq["tk"] / sq["t64"])))
+    finally:
+        with torch.no_grad():
+            for name, p in redrawn.items():
+                p.copy_(own[name])
+    secs = time.perf_counter() - t0
+
+    def span(key):
+        vals = [r[key] for r in rows]
+        return f"{min(vals):.2e}-{max(vals):.2e}"
+
+    print(f"[meta2] 11d kink probe, {KINK_DRAWS} SpyNet bias draws x {rows[0]['calls']} warp "
+          f"calls of one LR window ({rows[0]['coords']} sample coordinates a draw): on a kink "
+          f"{span('on_kink')}, within one fp32 ulp of one {span('near_kink')}; vs float64, "
+          f"second-order term plain {span('term_plain_vs_f64')}, kernels "
+          f"{span('term_kernel_vs_f64')}; first-order plain {span('grad_plain_vs_f64')}, "
+          f"kernels {span('grad_kernel_vs_f64')}; {secs:.1f} s")
+    return dict(rows=rows, seconds=secs)
+
+
 def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str) -> tuple:
-    """11a-11c; returns (measurements, K11 / K12 timing rows, 11a's launches)."""
+    """11a-11d; returns (measurements, K11 / K12 timing rows, 11a's launches)."""
     from dynavsr_tpu_torch.models.video_base_model import MetaModel
     from dynavsr_tpu_torch.train.meta import MetaConfig, meta_loss, meta_variables
 
@@ -2444,6 +2557,8 @@ def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str)
         term_batch = batch if arch == "DUF" else {k: v[:2] for k, v in batch.items()}
         out[tag]["term"] = second_order_term(f"meta2 11c {arch}", model, term_batch, gen,
                                              run["swap"], redraw, SPY_BIAS_STD, tries=tries)
+        if arch == "TOF":
+            out[tag]["kink_probe"] = kink_probe(model, batch, gen)
         out[tag]["seconds"] = time.perf_counter() - t_run
         del model
         torch.cuda.empty_cache()

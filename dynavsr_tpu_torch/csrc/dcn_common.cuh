@@ -1,8 +1,15 @@
 // Shared pieces of the modulated deformable conv kernels (dcn_fwd.cu,
-// dcn_bwd.cu): element loads/stores for fp32 and bf16, the bilinear sample
-// with the CUDA reference's rule that each corner outside the image
-// contributes zero, and the channels-last gather and tensor-core product
-// that K1 dcn_fwd introduced and K2 / K3 reuse.
+// dcn_bwd.cu, dcn_tangent.cu): element loads/stores for fp32 and bf16, the
+// bilinear sample with the CUDA reference's rule that each corner outside
+// the image contributes zero, and the channels-last gather and tensor-core
+// product that K1 dcn_fwd introduced and K2 / K3 / K8 / K10 reuse.
+//
+// The weight rule. The gather blends a sample's 4 corners with weights
+// m * w_corner, w the bilinear weights (kTan false: K1-K3), or with their
+// derivative along an offset cotangent (cy, cx) (kTan true: K8, the
+// tangent columns of the DCN's second order):
+//   tw_corner = cy * d w_corner / dy + cx * d w_corner / dx
+// both 0 for a corner outside the frame.
 //
 // Layouts, shared by all three kernels:
 //   x      (B, C, H, W) NCHW at the C entries; the kernels read it
@@ -42,6 +49,36 @@ constexpr int kRoundC = 16;             // product channels a round (one k16)
 constexpr int kRounds = kCK / kRoundC;  // 4 rounds a step
 // A step's 128 x 8 gather units: 32 lanes' quads of 4 pixels x 8 segments.
 static_assert(kThreads / kSeg * kRounds == kP, "a lane gathers one pixel a round");
+
+// The card's SM count (host).
+static inline int sm_count() {
+  int dev = 0, nsm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  return nsm;
+}
+
+// How many blocks of `kernel` (kThreads each, `smem` bytes of dynamic
+// shared memory) the card holds at once: blocks an SM times SMs, the
+// attribute that allows that memory set first. Asked once a device and
+// size (memo), so a launcher that runs on every call pays a lookup.
+struct Slots {
+  size_t smem;
+  int n;
+};
+template <typename K>
+static int grid_slots(K kernel, size_t smem, Slots (&memo)[16]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  Slots& m = memo[dev & 15];
+  if (m.n == 0 || m.smem != smem) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    m = Slots{smem, per_sm * sm_count()};
+  }
+  return m.n;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -117,10 +154,27 @@ struct Tile {
   int b, pix0;  // frame; this thread's first pixel in it
 };
 
-__device__ __forceinline__ Tile tile_at(int tile, int tpf) {
+// The tiles of K1 and K3 are tpf tiles of each frame: `geo` is tpf. Those
+// of K8 (kFlat) walk the flattened (frame, pixel) index with frames `geo`
+// pixels apart, H * W rounded up to 4, so one tile spans frames and a
+// thread's 4 pixels never straddle two; a quad past the last of the B
+// frames is placed past the end of the last one: every pixel off, every
+// read inside.
+template <bool kFlat = false>
+__device__ __forceinline__ Tile tile_at(int tile, int geo, int B = 0) {
   Tile t;
-  t.b = tile / tpf;
-  t.pix0 = (tile - t.b * tpf) * kP + quad_px();
+  if constexpr (kFlat) {
+    const int f = tile * kP + quad_px();
+    t.b = f / geo;
+    t.pix0 = f - t.b * geo;
+    if (t.b >= B) {
+      t.b = B - 1;
+      t.pix0 = geo;
+    }
+  } else {
+    t.b = tile / geo;
+    t.pix0 = (tile - t.b * geo) * kP + quad_px();
+  }
   return t;
 }
 
@@ -153,21 +207,25 @@ __device__ __forceinline__ void ld4(const float* p, float v[4]) {
   v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
 }
 
-// The offsets and masks of this thread's units of one step, loaded at
-// once so their latency is paid once a step, not once a unit.
+// The offsets and masks (and with the tangent rule the offset cotangents)
+// of this thread's units of one step, loaded at once so their latency is
+// paid once a step, not once a unit.
 struct Pre {
   float dy[kRounds], dx[kRounds], m[kRounds], by[kRounds], bx[kRounds];
+  float cy[kRounds], cx[kRounds];  // kTan only
   unsigned on;  // bit r: unit r lies in the frame and in C
 };
 
-template <typename T>
-__device__ __forceinline__ void prefetch(Pre& p, const T* offset, const T* mask, Tile tl, int k,
-                                         int c0, int C, int H, int W, float inv_w, int cg,
-                                         int gk, bool quads) {
+template <bool kTan, typename T>
+__device__ __forceinline__ void prefetch(Pre& p, const T* offset, const T* mask, const T* coff,
+                                         Tile tl, int k, int c0, int C, int H, int W,
+                                         float inv_w, int cg, int gk, bool quads) {
   static_assert(kRounds == 4, "a unit's 4 pixels are one vector load");
   const int hw = H * W, c = c0 + unit_seg() * kSeg;
   const int g = c < C ? c / cg : 0;
-  const T* dyp = offset + ((int64_t)tl.b * 2 * gk + 2 * (g * kTaps + k)) * hw + tl.pix0;
+  const int64_t och = ((int64_t)tl.b * 2 * gk + 2 * (g * kTaps + k)) * hw + tl.pix0;
+  const T* dyp = offset + och;
+  const T* cyp = kTan ? coff + och : nullptr;
   const T* mp = mask ? mask + ((int64_t)tl.b * gk + g * kTaps + k) * hw + tl.pix0 : nullptr;
   int oy, ox;
   row_col(tl.pix0, W, inv_w, &oy, &ox);
@@ -177,6 +235,7 @@ __device__ __forceinline__ void prefetch(Pre& p, const T* offset, const T* mask,
     p.by[r] = (float)(oy - 1 + k / 3);
     p.bx[r] = (float)(ox - 1 + k % 3);
     p.dy[r] = p.dx[r] = p.m[r] = 0.f;
+    if constexpr (kTan) p.cy[r] = p.cx[r] = 0.f;
     if (c < C && tl.pix0 + r < hw) p.on |= 1u << r;
     if (++ox == W) {
       ox = 0;
@@ -188,6 +247,10 @@ __device__ __forceinline__ void prefetch(Pre& p, const T* offset, const T* mask,
     ld4(dyp + hw, p.dx);
     if (mp) ld4(mp, p.m);
     else p.m[0] = p.m[1] = p.m[2] = p.m[3] = 1.f;
+    if constexpr (kTan) {
+      ld4(cyp, p.cy);
+      ld4(cyp + hw, p.cx);
+    }
   } else {
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
@@ -195,6 +258,10 @@ __device__ __forceinline__ void prefetch(Pre& p, const T* offset, const T* mask,
         p.dy[r] = ld(dyp + r);
         p.dx[r] = ld(dyp + hw + r);
         p.m[r] = mp ? ld(mp + r) : 1.f;
+        if constexpr (kTan) {
+          p.cy[r] = ld(cyp + r);
+          p.cx[r] = ld(cyp + hw + r);
+        }
       }
     }
   }
@@ -244,21 +311,49 @@ __device__ __forceinline__ void load_corners(uint4 (&v)[4][kVecs<T>], const Pos&
   }
 }
 
+// The derivative along (cy, cx) of the bilinear weights of the corners
+// 00, 01, 10, 11 of a sample with fractional parts (ly, lx).
+__device__ __forceinline__ void tangent_w(float w[4], float ly, float lx, float cy, float cx) {
+  const float hy = 1.f - ly, hx = 1.f - lx;
+  w[0] = -cy * hx - cx * hy;
+  w[1] = cx * hy - cy * lx;
+  w[2] = cy * hx - cx * ly;
+  w[3] = cy * lx + cx * ly;
+}
+
+// The derivative of the bilinear sample along (cy, cx) from its corners
+// v (0 outside the frame) and fractional parts.
+__device__ __forceinline__ float tangent(float ly, float lx, float cy, float cx,
+                                        const float v[4]) {
+  float w[4];
+  tangent_w(w, ly, lx, cy, cx);
+  return v[0] * w[0] + v[1] * w[1] + v[2] * w[2] + v[3] * w[3];
+}
+
 // Vector gather, first half: issue the corner loads of this thread's unit
-// of round r.
-template <typename T>
+// of round r, and form its corner weights by the weight rule.
+template <bool kTan, typename T>
 __device__ __forceinline__ void issue(Unit<T>& u, const Pre& p, const T* xb, int r, int C,
                                       int H, int W) {
   const Pos q = position(p, r, H, W);
   const float m = (p.on >> r & 1u) ? p.m[r] : 0.f;
-  const float wy0 = q.y0in ? m * (1.f - q.ly) : 0.f;
-  const float wy1 = q.y1in ? m * q.ly : 0.f;
-  const float wx0 = q.x0in ? 1.f - q.lx : 0.f;
-  const float wx1 = q.x1in ? q.lx : 0.f;
-  u.w[0] = wy0 * wx0;
-  u.w[1] = wy0 * wx1;
-  u.w[2] = wy1 * wx0;
-  u.w[3] = wy1 * wx1;
+  if constexpr (kTan) {
+    float tw[4];
+    tangent_w(tw, q.ly, q.lx, p.cy[r] * m, p.cx[r] * m);
+    u.w[0] = q.y0in && q.x0in ? tw[0] : 0.f;
+    u.w[1] = q.y0in && q.x1in ? tw[1] : 0.f;
+    u.w[2] = q.y1in && q.x0in ? tw[2] : 0.f;
+    u.w[3] = q.y1in && q.x1in ? tw[3] : 0.f;
+  } else {
+    const float wy0 = q.y0in ? m * (1.f - q.ly) : 0.f;
+    const float wy1 = q.y1in ? m * q.ly : 0.f;
+    const float wx0 = q.x0in ? 1.f - q.lx : 0.f;
+    const float wx1 = q.x1in ? q.lx : 0.f;
+    u.w[0] = wy0 * wx0;
+    u.w[1] = wy0 * wx1;
+    u.w[2] = wy1 * wx0;
+    u.w[3] = wy1 * wx1;
+  }
   load_corners(u.v, q, xb, C);
 }
 
@@ -274,14 +369,14 @@ __device__ __forceinline__ void blend(const Unit<T>& u, float val[kSeg]) {
 
 // Element-by-element gather of the same 8 column values, for shapes whose
 // groups do not fall on 8-channel boundaries. x is channels-last.
-template <typename T>
+template <bool kTan, typename T>
 __device__ __forceinline__ void gather_any(float val[kSeg], const T* x, const T* offset,
-                                           const T* mask, Tile tl, int k, int c0, int r, int C,
-                                           int H, int W, int cg, int gk) {
+                                           const T* mask, const T* coff, Tile tl, int k, int c0,
+                                           int r, int C, int H, int W, int cg, int gk) {
   const int hw = H * W, pix = tl.pix0 + r, cs = c0 + unit_seg() * kSeg;
   int last_g = -1;
   Sample s;
-  float m = 0.f;
+  float m = 0.f, cy = 0.f, cx = 0.f;
   for (int j = 0; j < kSeg; ++j) {
     const int c = cs + j;
     val[j] = 0.f;
@@ -291,6 +386,10 @@ __device__ __forceinline__ void gather_any(float val[kSeg], const T* x, const T*
       const int64_t och = (int64_t)tl.b * 2 * gk + 2 * (g * kTaps + k);
       const float dy = ld(offset + och * hw + pix), dx = ld(offset + (och + 1) * hw + pix);
       m = mask ? ld(mask + ((int64_t)tl.b * gk + g * kTaps + k) * hw + pix) : 1.f;
+      if constexpr (kTan) {
+        cy = ld(coff + och * hw + pix);
+        cx = ld(coff + (och + 1) * hw + pix);
+      }
       s = make_sample((float)(pix / W - 1 + k / 3) + dy, (float)(pix % W - 1 + k % 3) + dx, H,
                       W);
       last_g = g;
@@ -301,7 +400,7 @@ __device__ __forceinline__ void gather_any(float val[kSeg], const T* x, const T*
     v[1] = s.i01 >= 0 ? ld(base + (int64_t)s.i01 * C) : 0.f;
     v[2] = s.i10 >= 0 ? ld(base + (int64_t)s.i10 * C) : 0.f;
     v[3] = s.i11 >= 0 ? ld(base + (int64_t)s.i11 * C) : 0.f;
-    val[j] = m * bilinear(s, v);
+    val[j] = m * (kTan ? tangent(s.ly, s.lx, cy, cx, v) : bilinear(s, v));
   }
 }
 
@@ -326,23 +425,25 @@ __device__ __forceinline__ void store_col(float* col, int r, const float val[kSe
 
 // Gather the column tile of step (tap k, channels [c0, c0 + 64)) of tile
 // tl into dst, round by round, running between(r) after the corner loads
-// of round r (and in bf16 of round r + 1) are issued.
-template <typename T, bool kVec, typename F>
+// of round r (and in bf16 of round r + 1) are issued. kTan: the tangent
+// rule, along the offset cotangent coff (as offset; fp32 only).
+template <typename T, bool kVec, bool kTan, typename F>
 __device__ __forceinline__ void gather_step(T* dst, const T* x, const T* offset, const T* mask,
-                                            Tile tl, int k, int c0, int C, int H, int W,
-                                            float inv_w, int cg, int gk, bool quads,
+                                            const T* coff, Tile tl, int k, int c0, int C, int H,
+                                            int W, float inv_w, int cg, int gk, bool quads,
                                             F&& between) {
+  static_assert(!kTan || sizeof(T) == 4, "the tangent rule is fp32 only");
   if constexpr (kVec) {
     Pre p;
-    prefetch(p, offset, mask, tl, k, c0, C, H, W, inv_w, cg, gk, quads);
+    prefetch<kTan>(p, offset, mask, coff, tl, k, c0, C, H, W, inv_w, cg, gk, quads);
     const int cs = c0 + unit_seg() * kSeg;  // past C (C < 64) its weights are 0: read channel 0
     const T* xb = x + (int64_t)tl.b * H * W * C + (cs < C ? cs : 0);
     if constexpr (sizeof(T) == 2) {  // two units in flight: 20 registers each
       Unit<T> u[2];
-      issue(u[0], p, xb, 0, C, H, W);
+      issue<kTan>(u[0], p, xb, 0, C, H, W);
 #pragma unroll
       for (int r = 0; r < kRounds; ++r) {
-        if (r + 1 < kRounds) issue(u[(r + 1) & 1], p, xb, r + 1, C, H, W);
+        if (r + 1 < kRounds) issue<kTan>(u[(r + 1) & 1], p, xb, r + 1, C, H, W);
         between(r);
         float val[kSeg];
         blend(u[r & 1], val);
@@ -352,7 +453,7 @@ __device__ __forceinline__ void gather_step(T* dst, const T* x, const T* offset,
 #pragma unroll
       for (int r = 0; r < kRounds; ++r) {
         Unit<T> u;
-        issue(u, p, xb, r, C, H, W);
+        issue<kTan>(u, p, xb, r, C, H, W);
         between(r);
         float val[kSeg];
         blend(u, val);
@@ -364,7 +465,7 @@ __device__ __forceinline__ void gather_step(T* dst, const T* x, const T* offset,
     for (int r = 0; r < kRounds; ++r) {
       between(r);
       float val[kSeg];
-      gather_any(val, x, offset, mask, tl, k, c0, r, C, H, W, cg, gk);
+      gather_any<kTan>(val, x, offset, mask, coff, tl, k, c0, r, C, H, W, cg, gk);
       store_col(dst, r, val);
     }
   }

@@ -66,87 +66,20 @@
 
 #include <algorithm>
 
-#include "dcn_common.cuh"
+#include "dcn_fwd.cuh"
 
 namespace dcn {
 namespace fwd {
 
-// Bias, and the finished tile out to NCHW in out's dtype.
-template <typename T>
-__device__ __forceinline__ void epilogue(float (&acc)[32], T* out, const T* bias, int tile,
-                                         int tpf, int o0, int hw, int Cout) {
-  const int b = tile / tpf, p0 = (tile - b * tpf) * kP;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    int p, o;
-    acc_pos<T>(e, &p, &o);
-    const int pix = p0 + p, oc = o0 + o;
-    if (pix < hw && oc < Cout)
-      st(out + ((int64_t)b * Cout + oc) * hw + pix, acc[e] + (bias ? ld(bias + oc) : 0.f));
-    acc[e] = 0.f;
-  }
-}
-
-// One block: out-channels [64 y, 64 y + 64); pixel tiles x, x + gridDim.x, ...
-// Shared memory: the column ring (2 x 128 x 64) and the weight ring (2
-// slices of 64 x 64), each filled one step ahead. x is channels-last.
+// K1: items are the tpf tiles of each frame, one split.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
 dcn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ offset,
                const T* __restrict__ mask, const T* __restrict__ wt,
-               const T* __restrict__ bias, T* __restrict__ out, int C, int H, int W, int Cout,
-               int gd, int tpf, int ntiles, int nch, bool quads) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* col = reinterpret_cast<T*>(smem);
-  T* wsm = col + 2 * kP * kCK;
-  const int cg = C / gd, gk = gd * kTaps, steps = kTaps * nch;
-  const int o0 = blockIdx.y * kN;
-  const float inv_w = 1.f / (float)W;
-  int tile = blockIdx.x;
-  if (tile >= ntiles) return;
-
-  // Gather the column tile and the weight slice of step gs of tile tl into
-  // ring slot `slot`, round by round, running between(r) after the corner
-  // loads of round r (and in bf16 of round r + 1) are issued.
-  auto gather = [&](int slot, Tile tl, int gs, auto&& between) {
-    const int k = gs / nch, c0 = (gs % nch) * kCK;
-    load_slice(wsm + slot * kCK * kN, wt, k, c0, o0, C, Cout);
-    gather_step<T, kVec>(col + slot * kP * kCK, x, offset, mask, tl, k, c0, C, H, W, inv_w, cg,
-                         gk, quads, between);
-    wait_copies();  // the weight slice, before the barrier that publishes it
-  };
-
-  Tile cur = tile_at(tile, tpf);
-  gather(0, cur, 0, [](int) {});
-  __syncthreads();
-
-  float acc[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-  for (int s = 0, ring = 0;; ring ^= 1) {
-    int ntile = tile, ns = s + 1;
-    if (ns == steps) {
-      ns = 0;
-      ntile += gridDim.x;
-    }
-    const bool more = ntile < ntiles;  // the same in every thread of the block
-    const T* cs = col + ring * kP * kCK;
-    const T* ws = wsm + ring * kCK * kN;
-    auto product = [&](int r) { contract(cs, ws, r, acc); };
-    const Tile nxt = ntile == tile ? cur : tile_at(ntile, tpf);
-    if (more) {
-      gather(ring ^ 1, nxt, ns, product);
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r) product(r);
-    }
-    if (s == steps - 1) epilogue(acc, out, bias, tile, tpf, o0, H * W, Cout);
-    if (!more) break;
-    __syncthreads();
-    tile = ntile;
-    s = ns;
-    cur = nxt;
-  }
+               const T* __restrict__ bias, T* __restrict__ out, int B, int C, int H, int W,
+               int Cout, int gd, int tpf, int ntiles, int nch, bool quads) {
+  fwd_body<T, kVec, false>(x, offset, mask, nullptr, wt, bias, out, nullptr, B, C, H, W, Cout, gd,
+                           tpf, ntiles, nch, 1, 0, quads);
 }
 
 // NCHW -> channels-last (B, H*W, C) copy of x, through a 32 x 32 tile in
@@ -190,7 +123,7 @@ static int launch(const void* x, void* xcl, const void* offset, const void* mask
   // Offsets and masks load 4 pixels at a time where every plane starts aligned.
   const bool quads = hw % 4 == 0 && (uintptr_t)offset % 16 == 0 && (uintptr_t)mask % 16 == 0;
   kernel<<<dim3(gx, gy), kThreads, smem, stream>>>(
-      (const T*)xcl, (const T*)offset, (const T*)mask, (const T*)wt, (const T*)bias, (T*)out,
+      (const T*)xcl, (const T*)offset, (const T*)mask, (const T*)wt, (const T*)bias, (T*)out, B,
       C, H, W, Cout, gd, tpf, ntiles, (C + kCK - 1) / kCK, quads);
   return (int)cudaGetLastError();
 }

@@ -30,37 +30,44 @@
 // 16x16 each kernel's product is 0.38 G FMA (11 us at 67 TFLOP/s fp32, TF32
 // off) and its bytes a few MB (~2 us at 3.35 TB/s): operations bound them.
 // These are small calls, so what the card spends is the sample chains
-// (offsets -> positions -> corners) and, for K9 / K10, their atomics.
+// (offsets -> positions -> corners), K10's atomics, and a grid that the
+// small frames leave mostly idle.
 //
-// Design: a simple kernel that is right first. Shared with K1-K3
-// (dcn_common.cuh): x is read channels-last, so the 32 channels of a chunk
-// at one corner are one coalesced 128-byte read; a sample's corners are
-// taken at the clamped positions of `position` with weight 0 outside, so
-// every load is unconditional. The products are plain fp32 FMAs over tiles
-// in shared memory (32 pixels x 32 channels of columns, 64 output channels):
-//  - K8: a block owns 32 pixels of one frame and 64 output channels and
-//    walks (tap, 32-channel chunk) steps: the tangent column tile and the
-//    weight slice go to shared memory, then each thread accumulates 8
-//    pixels x 1 output channel.
-//  - K9: a block owns one (tap, 32-channel chunk, 64 output channels) slice
-//    of gw and walks 8 pixel tiles, each thread summing 8 channels x 1
-//    output channel in registers; one atomicAdd per entry at the end.
-//  - K10: a block owns 32 pixels, one tap and 32 channels: gc is a product
-//    over Cout in shared memory (each thread 4 pixels x 1 channel), then
-//    each thread scatters its grad x with atomics (channels-last, so a
-//    warp's 32 atomics are consecutive addresses), and the offset and mask
-//    terms are summed over the group's channels by warp shuffles (lanes are
-//    consecutive channels) before one atomicAdd a group.
+// Design. K8 is K1 with the tangent weight rule and K10 is K2 with it
+// (dcn_common.cuh, dcn_fwd.cuh, dcn_bwd_data.cuh; their notes in
+// dcn_fwd.cu and dcn_bwd.cu): x channels-last, a sample's 8 channels one
+// pair of 16-byte loads a corner, offsets / masks / cotangents loaded 4
+// pixels at a time (K8) or staged once a step in shared memory (K10), the
+// fp32 products as 8 px x 4 ch register tiles over float4 shared reads,
+// weight slices streamed by cp.async; K10's offset and mask gradients are
+// summed over each group in shared memory and stored once, without
+// atomics, and its grad x is gathered for near samples, with atomics left
+// for far samples and corners in another tile. To fill the card at the
+// inner step's small frames:
+//  - K8's 128-pixel tiles run over the flattened (frame, pixel) index (a
+//    tile spans frames; frames padded to 4 pixels, so vector loads stay
+//    whole) and a tile's 9 taps are split over 1, 3 or 9 blocks, whichever
+//    gives the fewest rounds of steps a block; split s > 0 writes its
+//    partial sums to a scratch and a second kernel adds them to the output
+//    in split order, so the result is deterministic.
+//  - K10's 8 x 16 tiles hold several whole frames where they fit (frames of
+//    at most 8 rows and 4, 8 or 16 columns: the 8x8 and 4x4 levels), and
+//    K2's tap groups (1, 3 or 9 items a tile) split the taps over blocks;
+//    the items' grad x meets in one fp32 scratch by atomics, as in K2.
+// K9 keeps PR 9's design (a plain kernel over tangent columns built in
+// shared memory, one atomic an entry at the end).
 // fp32 only: the meta configs run fp32; a bf16 call raises in the wrapper.
 #include <stdint.h>
 
 #include <algorithm>
 
-#include "dcn_common.cuh"
+#include "dcn_bwd_data.cuh"
+#include "dcn_fwd.cuh"
 
 namespace dcn {
 namespace tng {
 
+// K9: PR 9's design.
 constexpr int kTP = 32;   // pixels per tile
 constexpr int kTC = 32;   // channels per chunk (one warp's lanes)
 constexpr int kTO = 64;   // output channels per block or product step
@@ -69,10 +76,8 @@ constexpr int kRows = kTT / kTC;  // 8 warps: a warp's lanes are the chunk's cha
 
 // The corners of one sample and their tangent weights.
 struct Tan {
-  int idx[4];     // clamped pixel index of each corner in its plane
-  float tw[4];    // coff . d w / d pos, 0 outside the frame
-  float sh[4];    // sign of the corner in h, 0 outside the frame
-  bool in[4];
+  int idx[4];   // clamped pixel index of each corner in its plane
+  float tw[4];  // coff . d w / d pos, 0 outside the frame
 };
 
 __device__ __forceinline__ Tan tangent_at(int pix, int k, float dy, float dx, float cy, float cx,
@@ -87,15 +92,12 @@ __device__ __forceinline__ Tan tangent_at(int pix, int k, float dy, float dx, fl
   const float hy = 1.f - q.ly, hx = 1.f - q.lx;
   const float wy[4] = {-hx, -q.lx, hx, q.lx};   // d w / dy: 00, 01, 10, 11
   const float wx[4] = {-hy, hy, -q.ly, q.ly};   // d w / dx
-  const float sg[4] = {1.f, -1.f, -1.f, 1.f};
   const bool in[4] = {q.y0in && q.x0in, q.y0in && q.x1in, q.y1in && q.x0in, q.y1in && q.x1in};
   Tan t;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     t.idx[c] = q.idx[c];
-    t.in[c] = in[c];
     t.tw[c] = in[c] ? cy * wy[c] + cx * wx[c] : 0.f;
-    t.sh[c] = in[c] ? sg[c] : 0.f;
   }
   return t;
 }
@@ -149,46 +151,6 @@ __device__ __forceinline__ void column_tile(float (*col)[kTP + 1], const float* 
   }
 }
 
-// K8. Grid (B * tiles a frame, ceil(Cout / 64)). wt: (9, C, Cout).
-__global__ void __launch_bounds__(kTT)
-dcn_fwd_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                       const float* __restrict__ mask, const float* __restrict__ coff,
-                       const float* __restrict__ wt, float* __restrict__ out, int C, int H, int W,
-                       int Cout, int gd, int tpf) {
-  __shared__ float col[kTC][kTP + 1];
-  __shared__ float ws[kTC][kTO];
-  const int hw = H * W, b = blockIdx.x / tpf, p0 = (blockIdx.x % tpf) * kTP;
-  const int o0 = blockIdx.y * kTO, oo = threadIdx.x % kTO, pg = threadIdx.x / kTO;
-  float acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  for (int k = 0; k < kTaps; ++k) {
-    for (int c0 = 0; c0 < C; c0 += kTC) {
-      column_tile(col, x, offset, mask, coff, b, p0, k, c0, C, H, W, gd);
-      for (int e = threadIdx.x; e < kTC * kTO; e += kTT) {
-        const int cc = e / kTO, o = e % kTO;
-        ws[cc][o] = (c0 + cc < C && o0 + o < Cout)
-                        ? wt[((int64_t)k * C + c0 + cc) * Cout + o0 + o] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int cc = 0; cc < kTC; ++cc) {
-        const float w = ws[cc][oo];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = fmaf(col[cc][pg * 8 + j], w, acc[j]);
-      }
-      __syncthreads();
-    }
-  }
-  const int o = o0 + oo;
-  if (o >= Cout) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int pix = p0 + pg * 8 + j;
-    if (pix < hw) out[((int64_t)b * Cout + o) * hw + pix] = acc[j];
-  }
-}
-
 // K9. Grid (blocks over pixel tiles, 9 * nch, ceil(Cout / 64)); gw (Cout,
 // C, 3, 3) fp32, zeroed by the launcher.
 __global__ void __launch_bounds__(kTT)
@@ -229,102 +191,191 @@ dcn_bwd_weight_tangent_kernel(const float* __restrict__ x, const float* __restri
   }
 }
 
-// K10. Grid (B * tiles a frame, 9 * nch). wt: (9, Cout, C); gx channels-last
-// (B, H, W, C), goff and gmask as offset and mask; all fp32, zeroed by the
-// launcher. seg: the largest power of two dividing both the group size and
-// 32 (a run of seg lanes lies in one group).
-__global__ void __launch_bounds__(kTT)
+
+// K8's last pass: out += the partial sums of splits 1 .. nparts, in order.
+__global__ void __launch_bounds__(256) sum_parts(float* __restrict__ out,
+                                                 const float* __restrict__ part, int64_t n,
+                                                 int nparts) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  if (n % 4 == 0) {
+    float4* o4 = reinterpret_cast<float4*>(out);
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4; i += step) {
+      float4 s = o4[i];
+      for (int q = 0; q < nparts; ++q) {
+        const float4 v = p4[q * (n / 4) + i];
+        s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+      }
+      o4[i] = s;
+    }
+    return;
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    float s = out[i];
+    for (int q = 0; q < nparts; ++q) s += part[q * n + i];
+    out[i] = s;
+  }
+}
+
+// K8: K1's body with the tangent rule, on tiles across frames and splits.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+dcn_fwd_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                       const float* __restrict__ mask, const float* __restrict__ coff,
+                       const float* __restrict__ wt, float* __restrict__ out,
+                       float* __restrict__ part, int B, int C, int H, int W, int Cout, int gd,
+                       int stride, int nitems, int nch, int nsplit, int64_t n_out, bool quads) {
+  fwd::fwd_body<float, kVec, true>(x, offset, mask, coff, wt, nullptr, out, part, B, C, H, W,
+                                   Cout, gd, stride, nitems, nch, nsplit, n_out, quads);
+}
+
+// K10: K2's body with the tangent rule, and its element-by-element form.
+__global__ void __launch_bounds__(kThreads, 2)
 dcn_bwd_data_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                             const float* __restrict__ mask, const float* __restrict__ coff,
-                            const float* __restrict__ wt, const float* __restrict__ grad_out,
+                            const float* __restrict__ wt, const float* __restrict__ gout,
                             float* __restrict__ gx, float* __restrict__ goff,
-                            float* __restrict__ gmask, int C, int H, int W, int Cout, int gd,
-                            int tpf, int nch, int seg) {
-  __shared__ float ws[kTO][kTC];
-  __shared__ float gos[kTO][kTP];
-  const int hw = H * W, cg = C / gd, gk = gd * kTaps;
-  const int b = blockIdx.x / tpf, p0 = (blockIdx.x % tpf) * kTP;
-  const int k = blockIdx.y / nch, c0 = (blockIdx.y % nch) * kTC;
-  const int lane = threadIdx.x % kTC, row = threadIdx.x / kTC, c = c0 + lane;
-  constexpr int kPer = kTP / kRows;  // pixels a thread: row, row + 8, ...
-  float gc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) gc[i] = 0.f;
-  for (int o0 = 0; o0 < Cout; o0 += kTO) {
-    for (int e = threadIdx.x; e < kTO * kTC; e += kTT) {
-      const int o = e / kTC, cc = e % kTC;
-      ws[o][cc] = (o0 + o < Cout && c0 + cc < C)
-                      ? wt[((int64_t)k * Cout + o0 + o) * C + c0 + cc] : 0.f;
-    }
-    for (int e = threadIdx.x; e < kTO * kTP; e += kTT) {
-      const int o = e / kTP, px = e % kTP;
-      gos[o][px] = (o0 + o < Cout && p0 + px < hw)
-                       ? grad_out[((int64_t)b * Cout + o0 + o) * hw + p0 + px] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int o = 0; o < kTO; ++o) {
-      const float w = ws[o][lane];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) gc[i] = fmaf(w, gos[o][row + kRows * i], gc[i]);
-    }
-    __syncthreads();
+                            float* __restrict__ gmask, bwd::Geo g, int C, int Cout, int gd,
+                            int nitems, int ntg) {
+  bwd::bwd_data_body<float, true>(x, offset, mask, coff, wt, gout, gx, goff, gmask, g, C, Cout,
+                                  gd, nitems, ntg);
+}
+
+__global__ void __launch_bounds__(256)
+dcn_bwd_data_tangent_kernel_any(const float* __restrict__ x, const float* __restrict__ offset,
+                                const float* __restrict__ mask, const float* __restrict__ coff,
+                                const float* __restrict__ wt, const float* __restrict__ gout,
+                                float* __restrict__ gx, float* __restrict__ goff,
+                                float* __restrict__ gmask, int B, int C, int H, int W, int Cout,
+                                int gd) {
+  bwd::bwd_data_any_body<float, true>(x, offset, mask, coff, wt, gout, gx, goff, gmask, B, C, H,
+                                      W, Cout, gd);
+}
+
+// K8's shared memory (K1's kernel with the tangent rule): the column and
+// weight rings, 96 KB.
+constexpr size_t kFwdSmem = (2 * kP * kCK + 2 * kCK * kN) * sizeof(float);
+
+// K8's geometry: frames padded to 4 pixels, 128-pixel tiles across them.
+struct FwdPlan {
+  int stride, ntiles, gy, slots;
+};
+
+template <bool kVec>
+static FwdPlan fwd_plan(int B, int H, int W, int Cout) {
+  FwdPlan p;
+  p.stride = (H * W + 3) / 4 * 4;
+  p.ntiles = (int)(((int64_t)B * p.stride + kP - 1) / kP);
+  p.gy = (Cout + kN - 1) / kN;
+  static Slots memo[16];
+  p.slots = grid_slots(dcn_fwd_tangent_kernel<kVec>, kFwdSmem, memo) / p.gy;
+  return p;
+}
+
+// Splits of a tile's steps (1, 3 or 9): the fewest rounds of items a block
+// walks, each costing its steps, plus one for summing the partials.
+static int fwd_splits(const FwdPlan& p, int steps) {
+  if (p.slots < 1) return 1;
+  int best = 1;
+  int64_t cost = -1;
+  for (int s = 1; s <= kTaps; s *= 3) {
+    const int64_t c = ((int64_t)p.ntiles * s + p.slots - 1) / p.slots * (steps / s) + (s > 1);
+    if (cost < 0 || c < cost) cost = c, best = s;
   }
-  const float* xb = x + (int64_t)b * hw * C + (c < C ? c : 0);
-  float* gxb = gx + (int64_t)b * hw * C + c;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int pix = p0 + row + kRows * i;  // the same pixel in every lane of the warp
-    const bool valid = c < C && pix < hw;
-    float poy = 0.f, pox = 0.f, pm = 0.f;
-    const int g = valid ? c / cg : 0;
-    if (valid) {
-      const Sample s = load_sample(offset, mask, coff, b, g, k, pix, gk, hw);
-      const Tan t = tangent_at(pix, k, s.dy, s.dx, s.cy, s.cx, H, W);
-      const float gcm = gc[i] * s.m;
-      float h = 0.f, d = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float v = __ldg(xb + (int64_t)t.idx[q] * C);
-        h = fmaf(t.sh[q], v, h);
-        d = fmaf(t.tw[q], v, d);
-        if (t.in[q]) atomicAdd(gxb + (int64_t)t.idx[q] * C, gcm * t.tw[q]);
-      }
-      poy = gcm * h * s.cx;
-      pox = gcm * h * s.cy;
-      pm = gc[i] * d;
-    }
-    // Sum over the group's lanes (seg lanes at a time), then one atomic.
-    for (int sh = seg / 2; sh > 0; sh >>= 1) {
-      poy += __shfl_xor_sync(0xffffffffu, poy, sh);
-      pox += __shfl_xor_sync(0xffffffffu, pox, sh);
-      pm += __shfl_xor_sync(0xffffffffu, pm, sh);
-    }
-    if (valid && lane % seg == 0) {
-      const int64_t och = ((int64_t)b * 2 * gk + 2 * (g * kTaps + k)) * hw + pix;
-      atomicAdd(goff + och, poy);
-      atomicAdd(goff + och + hw, pox);
-      if (gmask) atomicAdd(gmask + ((int64_t)b * gk + g * kTaps + k) * hw + pix, pm);
-    }
+  return best;
+}
+
+static bool vec_shape(int C, int gd) { return C % kSeg == 0 && (C / gd) % kSeg == 0; }
+
+template <bool kVec>
+static int launch_fwd(const float* x, const float* offset, const float* mask, const float* coff,
+                      const float* wt, float* out, float* part, int B, int C, int H, int W,
+                      int Cout, int gd, int split, cudaStream_t s) {
+  const FwdPlan p = fwd_plan<kVec>(B, H, W, Cout);
+  if (p.slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const int nch = (C + kCK - 1) / kCK, nitems = p.ntiles * split;
+  const int64_t n_out = (int64_t)B * Cout * H * W;
+  const bool quads = H * W % 4 == 0 && (uintptr_t)offset % 16 == 0 &&
+                     (uintptr_t)mask % 16 == 0 && (uintptr_t)coff % 16 == 0;
+  dcn_fwd_tangent_kernel<kVec><<<dim3(std::min(nitems, p.slots), p.gy), kThreads, kFwdSmem, s>>>(
+      x, offset, mask, coff, wt, out, part, B, C, H, W, Cout, gd, p.stride, nitems, nch, split,
+      n_out, quads);
+  if (split > 1) {
+    const int64_t blocks = std::min<int64_t>((n_out / 4 + 255) / 256 + 1, 4096);
+    sum_parts<<<(unsigned)blocks, 256, 0, s>>>(out, part, n_out, split - 1);
   }
+  return (int)cudaGetLastError();
+}
+
+// K10's shared memory (K2's kernel with the tangent rule): the grad_out
+// tile and weight slot, grad_col, the samples and their (cy, cx), and two
+// group sums.
+static size_t data_smem(int noc) {
+  return (size_t)noc * (bwd::kTP + kCK) * kN * sizeof(float) +
+         (bwd::kTP * kCK + bwd::kSums<true> * kSeg * bwd::kSP) * sizeof(float) +
+         bwd::kSlots * bwd::kTP * (sizeof(float4) + sizeof(float2));
+}
+
+// K10 on the shapes K2's vector path takes: tiles of whole frames where
+// they fit, tap groups as K2's (split, or the launcher's choice for 0).
+static int launch_data(const float* x, const float* offset, const float* mask,
+                       const float* coff, const float* wt, const float* gout, float* gx,
+                       float* goff, float* gmask, int B, int C, int H, int W, int Cout, int gd,
+                       int split, cudaStream_t s) {
+  using bwd::kTH;
+  using bwd::kTW;
+  const int noc = (Cout + kN - 1) / kN;
+  const size_t smem = data_smem(noc);
+  auto kernel = dcn_bwd_data_tangent_kernel;
+  static Slots memo[16];
+  const int slots = grid_slots(kernel, smem, memo);
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  bwd::Geo geo{B, H, W, 1, 1, 0, 0};
+  int ntiles;
+  if (H <= kTH && (W == 4 || W == 8 || W == 16) && kTH / H * (kTW / W) > 1) {
+    geo.fx = kTW / W;  // tiles of fy x fx whole frames
+    geo.fy = kTH / H;
+    ntiles = (B + geo.fx * geo.fy - 1) / (geo.fx * geo.fy);
+  } else {
+    geo.ntx = (W + kTW - 1) / kTW;
+    geo.tpf = geo.ntx * ((H + kTH - 1) / kTH);
+    ntiles = B * geo.tpf;
+  }
+  const int ntg = split ? split : bwd::tap_groups(ntiles, slots), nitems = ntiles * ntg;
+  kernel<<<std::min(nitems, slots), kThreads, smem, s>>>(x, offset, mask, coff, wt, gout, gx,
+                                                          goff, gmask, geo, C, Cout, gd, nitems,
+                                                          ntg);
+  return 0;
 }
 
 }  // namespace tng
 }  // namespace dcn
 
 // All tensors fp32. x_cl: x channels-last (B, H, W, C); offset, coff (B,
-// 2*Gd*9, H, W) and mask (B, Gd*9, H, W, or null) NCHW; wt (9, C, Cout);
-// out (B, Cout, H, W). Returns cudaGetLastError() after the launch.
+// 2*Gd*9, H, W) and mask (B, Gd*9, H, W, or null) NCHW; wt (9, C, Cout).
+// The number of splits of a tile's steps K8 takes at this shape (1, 3 or
+// 9): the caller gives dcn_fwd_tangent that many, and a scratch for
+// split - 1 partial outputs.
+extern "C" int dcn_fwd_tangent_splits(int B, int C, int H, int W, int Cout, int gd) {
+  using namespace dcn::tng;
+  if (B == 0 || H * W == 0 || Cout == 0) return 1;
+  const int steps = dcn::kTaps * ((C + dcn::kCK - 1) / dcn::kCK);
+  return vec_shape(C, gd) ? fwd_splits(fwd_plan<true>(B, H, W, Cout), steps)
+                          : fwd_splits(fwd_plan<false>(B, H, W, Cout), steps);
+}
+
+// out (B, Cout, H, W), needs no initialising; part: (split - 1) * B * Cout
+// * H * W floats (null for split 1). Returns cudaGetLastError().
 extern "C" int dcn_fwd_tangent(const void* x_cl, const void* offset, const void* mask,
-                               const void* coff, const void* wt, void* out, int B, int C, int H,
-                               int W, int Cout, int gd, void* stream) {
+                               const void* coff, const void* wt, void* out, void* part, int B,
+                               int C, int H, int W, int Cout, int gd, int split, void* stream) {
   using namespace dcn::tng;
   if (B == 0 || H * W == 0 || Cout == 0) return 0;
-  const int tpf = (H * W + kTP - 1) / kTP;
-  dcn_fwd_tangent_kernel<<<dim3(B * tpf, (Cout + kTO - 1) / kTO), kTT, 0, (cudaStream_t)stream>>>(
-      (const float*)x_cl, (const float*)offset, (const float*)mask, (const float*)coff,
-      (const float*)wt, (float*)out, C, H, W, Cout, gd, tpf);
-  return (int)cudaGetLastError();
+  if (split != 1 && split != 3 && split != 9) return (int)cudaErrorInvalidValue;
+  auto run = vec_shape(C, gd) ? launch_fwd<true> : launch_fwd<false>;
+  return run((const float*)x_cl, (const float*)offset, (const float*)mask, (const float*)coff,
+             (const float*)wt, (float*)out, (float*)part, B, C, H, W, Cout, gd, split,
+             (cudaStream_t)stream);
 }
 
 // grad_out (B, Cout, H, W); gw (Cout, C, 3, 3), zeroed here.
@@ -343,25 +394,32 @@ extern "C" int dcn_bwd_weight_tangent(const void* x_cl, const void* offset, cons
   return (int)cudaGetLastError();
 }
 
-// wt (9, Cout, C); grad_out (B, Cout, H, W); gx_cl (B, H, W, C), goff as
-// offset, gmask as mask (null without a mask): all zeroed here.
+
+// wt (9, Cout, C); grad_out (B, Cout, H, W); gx_cl (B, H, W, C), zeroed
+// here; goff as offset, gmask as mask (null without a mask), need no
+// initialising. split: the tap groups of a tile (1, 3 or 9), 0 for the
+// launcher's choice.
 extern "C" int dcn_bwd_data_tangent(const void* x_cl, const void* offset, const void* mask,
                                     const void* coff, const void* wt, const void* grad_out,
                                     void* gx_cl, void* goff, void* gmask, int B, int C, int H,
-                                    int W, int Cout, int gd, void* stream) {
+                                    int W, int Cout, int gd, int split, void* stream) {
   using namespace dcn::tng;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t px = (size_t)B * H * W;
-  cudaMemsetAsync(gx_cl, 0, sizeof(float) * px * C, s);
-  cudaMemsetAsync(goff, 0, sizeof(float) * px * 2 * gd * dcn::kTaps, s);
-  if (gmask) cudaMemsetAsync(gmask, 0, sizeof(float) * px * gd * dcn::kTaps, s);
-  if (px == 0 || C == 0) return (int)cudaGetLastError();
-  const int tpf = (H * W + kTP - 1) / kTP, nch = (C + kTC - 1) / kTC, cg = C / gd;
-  int seg = 1;
-  while (seg < kTC && cg % (seg * 2) == 0) seg *= 2;
-  dcn_bwd_data_tangent_kernel<<<dim3(B * tpf, dcn::kTaps * nch), kTT, 0, s>>>(
-      (const float*)x_cl, (const float*)offset, (const float*)mask, (const float*)coff,
-      (const float*)wt, (const float*)grad_out, (float*)gx_cl, (float*)goff, (float*)gmask, C,
-      H, W, Cout, gd, tpf, nch, seg);
+  const int hw = H * W, cg = C / gd;
+  cudaMemsetAsync(gx_cl, 0, sizeof(float) * (size_t)B * hw * C, s);
+  if (B == 0 || hw == 0 || C == 0) return (int)cudaGetLastError();
+  if (split != 0 && split != 1 && split != 3 && split != 9) return (int)cudaErrorInvalidValue;
+  const float *xf = (const float*)x_cl, *of = (const float*)offset, *mf = (const float*)mask,
+              *cf = (const float*)coff, *wf = (const float*)wt, *gf = (const float*)grad_out;
+  if (C % dcn::kSeg == 0 && cg % dcn::kSeg == 0 && (dcn::kCK % cg == 0 || cg % dcn::kCK == 0) &&
+      H <= dcn::bwd::kMaxSide && W <= dcn::bwd::kMaxSide) {
+    const int rc = launch_data(xf, of, mf, cf, wf, gf, (float*)gx_cl, (float*)goff,
+                               (float*)gmask, B, C, H, W, Cout, gd, split, s);
+    if (rc != 0) return rc;
+  } else {
+    const int64_t threads = (int64_t)B * gd * dcn::kTaps * hw;
+    dcn_bwd_data_tangent_kernel_any<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+        xf, of, mf, cf, wf, gf, (float*)gx_cl, (float*)goff, (float*)gmask, B, C, H, W, Cout, gd);
+  }
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("dcn_fwd", "dcn_bwd", "dcn_tangent", "warp_fwd", "warp_bwd", "warp_tangent",
            "duf_fwd", "duf_bwd")
-_HEADERS = {"dcn_fwd": ("dcn_common.cuh",), "dcn_bwd": ("dcn_common.cuh",),
-            "dcn_tangent": ("dcn_common.cuh",),
+_HEADERS = {"dcn_fwd": ("dcn_common.cuh", "dcn_fwd.cuh"),
+            "dcn_bwd": ("dcn_common.cuh", "dcn_bwd_data.cuh"),
+            "dcn_tangent": ("dcn_common.cuh", "dcn_fwd.cuh", "dcn_bwd_data.cuh"),
             "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",),
             "warp_tangent": ("warp_common.cuh",),
             "duf_fwd": ("duf_common.cuh",), "duf_bwd": ("duf_common.cuh",)}
@@ -42,9 +43,10 @@ _SIGNATURES = {
     "dcn_fwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "dcn_bwd_data": [_VP] * 9 + [_I] * 7 + [_VP],
     "dcn_bwd_weight": [_VP] * 6 + [_I] * 7 + [_VP],
-    "dcn_fwd_tangent": [_VP] * 6 + [_I] * 6 + [_VP],
+    "dcn_fwd_tangent": [_VP] * 7 + [_I] * 7 + [_VP],
+    "dcn_fwd_tangent_splits": [_I] * 6,
     "dcn_bwd_weight_tangent": [_VP] * 6 + [_I] * 6 + [_VP],
-    "dcn_bwd_data_tangent": [_VP] * 9 + [_I] * 6 + [_VP],
+    "dcn_bwd_data_tangent": [_VP] * 9 + [_I] * 7 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
     "warp_fwd_tangent": [_VP] * 4 + [_I] * 4 + [_VP],

@@ -22,6 +22,7 @@ the kernels.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -32,7 +33,7 @@ from dynavsr_tpu_torch.ops.dcn_ref import deform_conv2d_ref
 __all__ = ["deform_conv2d", "DeformConv2dFunction", "DcnBwdDataFunction",
            "DcnBwdWeightFunction", "dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight",
            "dcn_fwd_tangent", "dcn_bwd_weight_tangent", "dcn_bwd_data_tangent",
-           "launch_counts", "reset_launch_counts"]
+           "fwd_tangent_splits", "launch_counts", "reset_launch_counts"]
 
 fwd_launches = 0
 bwd_data_launches = 0
@@ -197,9 +198,20 @@ def _tangent_args(x, offset, mask, coff, gd: int, cout: int, name: str, **tensor
     return x, coff, tensors
 
 
+@functools.lru_cache(maxsize=None)
+def fwd_tangent_splits(b: int, c: int, h: int, w: int, cout: int, gd: int, device: int) -> int:
+    """How many blocks K8 splits a tile's taps over at this shape on the
+    card with index `device` (1, 3 or 9; the launcher's choice, asked once
+    a shape and card)."""
+    with torch.cuda.device(device):
+        return _build.load("dcn_tangent").dcn_fwd_tangent_splits(b, c, h, w, cout, gd)
+
+
 def dcn_fwd_tangent(x, offset, mask, weight, coff, deformable_groups: int) -> torch.Tensor:
     """K8: W . (m x the derivative of the bilinear sample along coff), (B,
-    Cout, H, W), no bias, on fp32 CUDA tensors."""
+    Cout, H, W), no bias, on fp32 CUDA tensors. Where the launcher splits a
+    tile's taps over blocks, the splits past the first sum into a scratch
+    that a second pass adds to the output in a fixed order."""
     global fwd_tangent_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
@@ -207,9 +219,13 @@ def dcn_fwd_tangent(x, offset, mask, weight, coff, deformable_groups: int) -> to
                                "K8 dcn_fwd_tangent", weight=weight)
     wt = t["weight"].permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    split = fwd_tangent_splits(b, c, h, w, cout, deformable_groups, x.get_device())
+    part = None if split == 1 else torch.empty((split - 1) * out.numel(), dtype=x.dtype,
+                                               device=x.device)
     rc = _build.load("dcn_tangent").dcn_fwd_tangent(
         x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), wt.data_ptr(),
-        out.data_ptr(), b, c, h, w, cout, deformable_groups, _build.stream(x))
+        out.data_ptr(), _ptr(part), b, c, h, w, cout, deformable_groups, split,
+        _build.stream(x))
     _build.raise_if(rc, "dcn_fwd_tangent")
     fwd_tangent_launches += 1
     return out
@@ -236,7 +252,9 @@ def dcn_bwd_weight_tangent(x, offset, mask, grad_out, coff, deformable_groups: i
 def dcn_bwd_data_tangent(x, offset, mask, weight, grad_out, coff, deformable_groups: int):
     """K10: the gradient of <W^T . grad_out, tangent columns> with respect
     to (x, offset, mask), on fp32 CUDA tensors; grad x comes back NCHW-shaped
-    with channels-last strides, grad mask None without a mask."""
+    with channels-last strides, grad mask None without a mask. The offset
+    and mask gradients are stored once each (no atomics: bitwise the same
+    from run to run); grad x is summed with atomics."""
     global bwd_data_tangent_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
@@ -249,7 +267,7 @@ def dcn_bwd_data_tangent(x, offset, mask, weight, grad_out, coff, deformable_gro
     rc = _build.load("dcn_tangent").dcn_bwd_data_tangent(
         x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), wt.data_ptr(),
         t["grad_out"].data_ptr(), gx.data_ptr(), goff.data_ptr(), _ptr(gmask), b, c, h, w,
-        cout, deformable_groups, _build.stream(x))
+        cout, deformable_groups, 0, _build.stream(x))
     _build.raise_if(rc, "dcn_bwd_data_tangent")
     bwd_data_tangent_launches += 1
     return gx.permute(0, 3, 1, 2), goff, gmask

@@ -208,21 +208,34 @@ def test_double_backward_through_the_kernel_function_raises(op, monkeypatch):
         torch.autograd.grad(g.sum(), t, create_graph=True)
 
 
-@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
-def test_dcn_second_order_in_every_input_matches_plain_autograd(with_mask, monkeypatch):
+# (Gd, C, H, W, offset scale): today's case; groups of 6 channels at Gd 8
+# (off the kernels' 8-channel vector path); white-noise offsets N(0, 4^2)
+# px (far samples, corners outside the frame); 4x4 frames (the meta inner
+# step's smallest level, where the kernels' tiles hold whole frames).
+SECOND_ORDER_CASES = {"default": (2, 4, H, W, 1.5), "cg6": (8, 48, H, W, 1.5),
+                      "wide": (2, 4, H, W, 4.0), "frames4x4": (2, 4, 4, 4, 1.5)}
+
+
+@pytest.mark.parametrize("case,with_mask", [
+    pytest.param(case, m, id=("" if case == "default" else f"{case}-") + ("nomask", "mask")[m])
+    for case in SECOND_ORDER_CASES for m in (True, False)])
+def test_dcn_second_order_in_every_input_matches_plain_autograd(case, with_mask, monkeypatch):
     """Every input of the DCN differentiated (x, offset, mask, weight,
     bias): g = dL/d(inputs) with create_graph, then the gradient of
     sum_i <r_i, g_i> for fixed random r_i, through Function.apply with
     K1-K3 and K8-K10 replaced by their plain versions, against plain
     autograd through deform_conv2d_ref; 1e-5 of the largest value each.
     The launch counts of the stand-ins are not kept: this is the
-    arithmetic of the decomposition."""
+    arithmetic of the decomposition, and so the plain K8-K10 formulas that
+    the card's checks hold the kernels to, on the kernels' edge cases
+    (SECOND_ORDER_CASES)."""
     _stand_ins("dcn", monkeypatch)
     rng = np.random.default_rng(5)
-    gd, c, cout = 2, 4, 3
-    arrays = [rng.standard_normal((B, c, H, W)),
-              rng.standard_normal((B, 2 * gd * 9, H, W)) * 1.5 + 0.37,
-              rng.random((B, gd * 9, H, W)), rng.standard_normal((cout, c, 3, 3)) * 0.3,
+    gd, c, h, w, scale = SECOND_ORDER_CASES[case]
+    cout = 3
+    arrays = [rng.standard_normal((B, c, h, w)),
+              rng.standard_normal((B, 2 * gd * 9, h, w)) * scale + (0.37 if scale < 4 else 0.0),
+              rng.random((B, gd * 9, h, w)), rng.standard_normal((cout, c, 3, 3)) * 0.3,
               rng.standard_normal(cout)]
     inputs = [torch.tensor(a, dtype=torch.float32) for a in arrays]
     if not with_mask:

@@ -506,30 +506,47 @@ def test_duf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 # The meta inner step's DCN calls (8 windows x 5 frames of SLR 16x16 at the
 # pyramid's three levels, Gd 8) and small edge shapes (C < 8, C = 128, one
-# pixel tile past a tile's end).
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(40, 64, 64, 16, 16), (40, 64, 64, 8, 8), (40, 64, 64, 4, 4),
-                                   (3, 8, 6, 9, 7), (1, 128, 64, 11, 3)],
-                         ids=["meta16", "meta8", "meta4", "small", "wide"])
-@pytest.mark.parametrize("gd", [1, 2, 8])
-@pytest.mark.parametrize("offsets", ["noise", "smooth"])
-@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
-def test_tangent_kernels_match_plain(cuda, shape, gd, offsets, with_mask):
-    """K8-K10 against their explicit plain formulas, fp32, 1e-4 of the
-    largest reference value (the same products in another order; K9 and
-    K10 sum with atomics). White-noise offsets reach outside the frame;
-    smooth ones (a bilinearly upsampled coarse field of a fraction of a
-    pixel, as trained offsets are) keep most samples inside."""
+# pixel tile past a tile's end; C = 48, whose groups at Gd 8 (6 channels)
+# miss the 8-channel vector path, on a 13x21 frame, a multiple neither of 4
+# pixels nor of a tile; a batch of 3 frames of 4x4, less than one tile).
+TANGENT_SHAPES = {"meta16": (40, 64, 64, 16, 16), "meta8": (40, 64, 64, 8, 8),
+                  "meta4": (40, 64, 64, 4, 4), "small": (3, 8, 6, 9, 7),
+                  "wide": (1, 128, 64, 11, 3), "c48": (2, 48, 48, 13, 21),
+                  "subtile": (3, 64, 64, 4, 4)}
+
+
+def _tangent_inputs(shape, gd, offsets, device):
+    """x, offset, mask, weight, grad_out and the offset cotangent coff.
+    Offsets: "noise" N(0.37, 2^2) px (many samples partly outside the
+    frame), "smooth" (a bilinearly upsampled coarse field of a fraction of a
+    pixel, as trained offsets are: most samples inside), "wide" N(0, 4^2)
+    px (far samples, corners out of the frame)."""
     b, c, cout, h, w = shape
-    if c % gd:
-        pytest.skip("channels not divisible by the groups")
-    x, offset, mask, weight, _, cot = _inputs(b, c, cout, h, w, gd, cuda, seed=23)
+    x, offset, mask, weight, _, cot = _inputs(b, c, cout, h, w, gd, device, seed=23)
     g = torch.Generator(device="cpu").manual_seed(24)
     if offsets == "smooth":
         coarse = torch.randn(b, 2 * gd * 9, max(1, h // 4), max(1, w // 4), generator=g) * 0.6
         offset = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
-                                                 align_corners=False).to(cuda).contiguous()
-    coff = torch.randn(offset.shape, generator=g).to(cuda)
+                                                 align_corners=False).to(device).contiguous()
+    elif offsets == "wide":
+        offset = (torch.randn(offset.shape, generator=g) * 4.0).to(device)
+    coff = torch.randn(offset.shape, generator=g).to(device)
+    return x, offset, mask, weight, cot, coff
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(TANGENT_SHAPES.values()), ids=list(TANGENT_SHAPES))
+@pytest.mark.parametrize("gd", [1, 2, 8])
+@pytest.mark.parametrize("offsets", ["noise", "smooth", "wide"])
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
+def test_tangent_kernels_match_plain(cuda, shape, gd, offsets, with_mask):
+    """K8-K10 against their explicit plain formulas, fp32, 1e-4 of the
+    largest reference value (the same products in another order; K9 and
+    K10 sum with atomics)."""
+    b, c, cout, h, w = shape
+    if c % gd:
+        pytest.skip("channels not divisible by the groups")
+    x, offset, mask, weight, cot, coff = _tangent_inputs(shape, gd, offsets, cuda)
     if not with_mask:
         mask = None
     got = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, gd)
@@ -542,6 +559,24 @@ def test_tangent_kernels_match_plain(cuda, shape, gd, offsets, with_mask):
         assert (gt is None) == (wt is None)
         if wt is not None:
             _close(gt, wt, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["meta16", "meta8", "meta4", "c48", "subtile"])
+@pytest.mark.parametrize("offsets", ["noise", "wide"])
+def test_tangent_outputs_are_deterministic(cuda, name, offsets):
+    """K8's output (its tap splits summed by a second pass in a fixed
+    order) and K10's offset and mask gradients (summed over each group in
+    shared memory, stored once) are the same bits in two runs; K10's grad x
+    takes atomics, in any order."""
+    x, offset, mask, weight, cot, coff = _tangent_inputs(TANGENT_SHAPES[name], 8, offsets, cuda)
+    out1 = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, 8)
+    out2 = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, 8)
+    _, goff1, gmask1 = dcn.dcn_bwd_data_tangent(x, offset, mask, weight, cot, coff, 8)
+    _, goff2, gmask2 = dcn.dcn_bwd_data_tangent(x, offset, mask, weight, cot, coff, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+    assert torch.equal(goff1, goff2) and torch.equal(gmask1, gmask2)
 
 
 @pytest.mark.gpu
