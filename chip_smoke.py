@@ -27,11 +27,13 @@ Phases; any failure raises and exits non-zero:
               request) against ops/duf_filter_ref.py at DUF's adaptation
               shape (8 SLR windows of 36x44) and inference shape (8
               windows of 144x176), R = 16, fp32 and bf16 filters, both
-              softmaxed and raw N(0, 1) filters; K11 warp_fwd_tangent and
-              K12 warp_bwd_tangent (grad flow, and grad x on request)
-              against grid_sample_ref's *_tangent_ref at TOF's meta
-              shapes (8 frames of 64x64 and 256x256), white-noise flows
-              N(0, 4^2) px and tangents (correctness checks, not timed);
+              softmaxed and raw N(0, 1) filters; the K11 / K12 kernel
+              (warp_tangent.cu) in each mode: T alone (warp_fwd_tangent),
+              grad flow, grad flow + grad x, each gradient with T in the
+              same launch (warp_bwd_tangent), against grid_sample_ref's
+              *_tangent_ref at TOF's meta shapes (8 frames of 64x64 and
+              256x256), white-noise flows N(0, 4^2) px and tangents
+              (correctness checks, not timed);
   4. main     the DynaVSR adapt-and-infer loop at full EDVR-M x4 + MFDN
               width (configs/test/test_DynaVSR_Vid4.yml), random weights
               from a seed, on a synthetic 16-frame 144x176 clip, through
@@ -151,21 +153,22 @@ Phases; any failure raises and exits non-zero:
               updates resumed from update 3, the running statistics
               meta-trained as in JAX: 11a train_DynaVSR_TOF_Vimeo90K.yml
               (TOFlow, 7 frames, in-module x4 pre-upscale, batch 8 x 7 x
-              256^2, alpha 1e-5, Adam 1e-5): K4 120, K5 72, K11 = K12 = 24
-              launches each update; 11b train_DynaVSR_DUF_Vimeo90K.yml
+              256^2, alpha 1e-5, Adam 1e-5): K4 120, K5 72, and 24 launches
+              of the K11 / K12 kernel with T and grad flow together
+              (warp_bwd_tangent; none of T alone) each update; 11b train_DynaVSR_DUF_Vimeo90K.yml
               (DUF-16L, batch 4): K6 5, K7 3; neither launches K1-K3 or
               K8-K10. Checks: l_outer on the first batch falls, every
               running statistic moves, the resumed net (statistics
               included), Adam moments and next batch bitwise. 11c, each
-              net: one meta update with every K4-K7, K11, K12 call held
+              net: one meta update with every K4-K7, K11 / K12 call held
               against its plain version (1e-4 of the largest value); 2
               meta updates profiled; the second-order part of the meta
               gradient with the kernels against the plain op's (relative
               norm 1e-2) at the first alpha in 1e-3..10 where it is >= 5 %
               of the gradient, for TOF with SpyNet's last-conv biases
               redrawn N(0, 0.1) so the flows sit off the pixel grid (the
-              trained weights' reading is reported too); K11 / K12 timed on
-              the inputs of their largest call. 11d (TOF): over 16 draws of
+              trained weights' reading is reported too); the K11 / K12
+              launch timed on the inputs of its largest call. 11d (TOF): over 16 draws of
               SpyNet's last-conv biases, the warp's first- and second-order
               terms on every warp call of one LR window's forward, plain
               warp and K4 / K5 / K11 / K12 in fp32 against the plain warp
@@ -291,11 +294,10 @@ KERNELS = {
                                "dynavsr_tpu/ops/dcn_fused.py:100"),
     "dcn_bwd_data_tangent": ("dynavsr_tpu_torch/csrc/dcn_tangent.cu", "meta 40x16x16",
                              "dynavsr_tpu/ops/dcn_fused.py:100"),
-    # The second order of _packed_bilinear's autodiff (TOF's meta-training),
-    # timed at its largest call of a meta update: the inner step's 8
-    # windows, SLR pre-upscaled to 64x64.
-    "warp_fwd_tangent": ("dynavsr_tpu_torch/csrc/warp_tangent.cu", "meta 8x64x64",
-                         "dynavsr_tpu/ops/grid_sample.py:54"),
+    # The second order of _packed_bilinear's autodiff (TOF's meta-training):
+    # K11's T and K12's gradients, one kernel and one launch, timed at its
+    # largest call of a meta update (the inner step's 8 windows, SLR
+    # pre-upscaled to 64x64; T and grad flow).
     "warp_bwd_tangent": ("dynavsr_tpu_torch/csrc/warp_tangent.cu", "meta 8x64x64",
                          "dynavsr_tpu/ops/grid_sample.py:54"),
 }
@@ -303,11 +305,13 @@ DCN_KERNELS = ("dcn_fwd", "dcn_bwd_data", "dcn_bwd_weight")
 # Device kernels a wrapper launches besides `<name>_kernel`, counted in its
 # profiled time (not in its launches): K1's channels-last copy of x; K2's
 # zero-fill of its grad x scratch and the transpose to NCHW; K3's zero-fill
-# of its scratch and the write-out as OIHW; K8's sum of its tap splits.
+# of its scratch and the write-out as OIHW; K8's sum of its tap splits;
+# K9's write-out (its scratch is zeroed by a memset).
 PROLOGUES = {"dcn_fwd": ("fwd::to_channels_last",),
              "dcn_bwd_data": ("bwd::gx_zero", "bwd::gx_to_nchw"),
              "dcn_bwd_weight": ("bwd::gw_zero", "bwd::gw_to_oihw"),
-             "dcn_fwd_tangent": ("tng::sum_parts",)}
+             "dcn_fwd_tangent": ("tng::sum_parts",),
+             "dcn_bwd_weight_tangent": ("tng::gw_tangent_to_oihw",)}
 WARP_KERNELS = ("warp_fwd", "warp_bwd")
 DUF_KERNELS = ("duf_fwd", "duf_bwd")
 # The K4-K7 wrappers by module: the profile splits their time by call size.
@@ -710,8 +714,7 @@ def phase_kernels() -> None:
         flow = torch.randn(shape[0], 2, *shape[2:], generator=gen, device="cuda") * 4.0
         cflow = torch.randn(shape[0], 2, *shape[2:], generator=gen, device="cuda")
         cot = torch.randn(*shape, generator=gen, device="cuda")
-        for need_x in (True, False):
-            warp_tangent_against_plain(label, x, flow, cflow, cot, need_x)
+        warp_tangent_against_plain(label, x, flow, cflow, cot)
         del x, flow, cflow, cot
     for label, (b, c, h, w) in DUF_SHAPES.items():
         for fdtype in (torch.float32, torch.bfloat16):
@@ -2236,13 +2239,14 @@ META2_RUNS = {
                 swap=(duf_module, "dynamic_upsampling_filter", dynamic_upsampling_filter_ref),
                 net={"which_model_G": "DUF_16L", "nframes": 7}),
 }
-WARP_TANGENT_KERNELS = ("warp_fwd_tangent", "warp_bwd_tangent")
+# The K11 / K12 kernel's wrapper on the meta path: T and grad flow in one launch.
+WARP_TANGENT_KERNELS = ("warp_bwd_tangent",)
 # Launches a meta update (remat on), counted on CPU with plain stand-ins
 # (tests/test_torch_port_meta_tof.py, _duf.py): TOF 6 neighbours x 5 warps
 # in 4 forwards (K4), 3 backwards of the 24 warps whose flow is not the
-# level-0 zero (K5), one K11 / K12 each; DUF one filter in 4 forwards plus
-# the filter tangent K6(x, Cf), 3 backwards.
-META2_LAUNCHES = {"11a": {"warp_fwd": 120, "warp_bwd": 72, "warp_fwd_tangent": 24,
+# level-0 zero (K5), one K11 / K12 launch each (no launch of T alone); DUF
+# one filter in 4 forwards plus the filter tangent K6(x, Cf), 3 backwards.
+META2_LAUNCHES = {"11a": {"warp_fwd": 120, "warp_bwd": 72, "warp_fwd_tangent": 0,
                           "warp_bwd_tangent": 24},
                   "11b": {"duf_fwd": 5, "duf_bwd": 3}}
 SPY_BIAS_STD = 0.1  # SpyNet blocks' last-conv biases for 11c's off-grid term check
@@ -2283,86 +2287,90 @@ def _plain_vjp(fn, x, second, grad_out, need_x):
     return list(grads)
 
 
-# The plain version of each K4-K7, K11, K12 wrapper, on its own arguments:
+# The plain version of each K4-K7, K11 / K12 wrapper, on its own arguments:
 # the non-None outputs in the wrapper's order.
 PLAIN_BN_CALLS = {
     "warp_fwd": lambda x, flow: [grid_sample_ref.warp_nchw(x, flow)],
     "warp_bwd": lambda x, flow, g, need_x: _plain_vjp(grid_sample_ref.warp_nchw, x, flow, g,
                                                       need_x),
     "warp_fwd_tangent": lambda *a: [grid_sample_ref.warp_fwd_tangent_ref(*a)],
-    "warp_bwd_tangent": lambda x, flow, g, cf, need_x: [
-        t for t in grid_sample_ref.warp_bwd_tangent_ref(x, flow, g, cf, need_x)
-        if t is not None],
+    "warp_bwd_tangent": lambda *a: [t for t in grid_sample_ref.warp_tangents_ref(*a)
+                                    if t is not None],
     "duf_fwd": lambda x, f: [dynamic_upsampling_filter_ref(x, f)],
     "duf_bwd": lambda x, f, g, need_x: _plain_vjp(dynamic_upsampling_filter_ref, x, f, g,
                                                   need_x),
 }
 
 
-def warp_tangent_bound(name, shape, need_x=False):
-    """(bound_ms, bound_by, bytes, flops) of one fp32 K11 / K12 call on (B,
-    C, H, W) frames: each input read once, each output written once. K11
-    reads x, the flow and its tangent and writes C planes (2C + 4 values a
-    pixel); K12 reads x, the flow, the tangent and grad_out and writes grad
-    flow (2C + 6), and grad x when asked for (+C). Operations: ~10 a pixel
-    for the position and weights, then 13 (K11) or 5 (K12; +24 with grad
-    x) a channel."""
+def warp_tangent_bound(shape, need_t, need_g, need_x=False):
+    """(bound_ms, bound_by, bytes, flops) of one fp32 call of the K11 / K12
+    kernel on (B, C, H, W) frames with the outputs asked for: each input
+    read once, each output written once. It reads x, the flow and its
+    tangent (C + 4 values a pixel), grad_out with grad flow (C); it writes
+    T (C), grad flow (2) and grad x (C). Operations: ~12 a pixel for the
+    position and weights, then 13 a channel for T, 5 for grad flow and 24
+    for grad x."""
     b, c, h, w = shape
     px = b * h * w
-    if name == "warp_fwd_tangent":
-        vals, flops = 2 * c + 4, px * (10 + 13 * c)
-    else:
-        vals = 2 * c + 6 + (c if need_x else 0)
-        flops = px * (12 + (29 if need_x else 5) * c)
+    vals = c + 4 + (c if need_t else 0) + (c + 2 if need_g else 0) + (c if need_x else 0)
+    flops = px * (12 + c * (13 * need_t + 5 * need_g + 24 * need_x))
     nbytes = px * vals * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def warp_tangent_against_plain(label, x, flow, cflow, cot, need_x):
-    """Phase 3's check of K11 and K12 against their plain formulas
-    (ops/grid_sample_ref.py): K11 1e-5 of the largest reference value (the
-    same products), K12 1e-4 (a sum over channels; grad x by atomics)."""
+def warp_tangent_against_plain(label, x, flow, cflow, cot):
+    """Phase 3's check of the K11 / K12 kernel against the plain formulas
+    (ops/grid_sample_ref.py) in each of its modes: T alone
+    (warp_fwd_tangent), then grad flow, and grad flow + grad x, each
+    without and with T in the same launch (warp_bwd_tangent). T within 1e-5
+    of the largest reference value (the same products), the gradients 1e-4
+    (a sum over channels; grad x by atomics)."""
     shape = tuple(x.shape)
-    got = {"warp_fwd_tangent": [warp.warp_fwd_tangent(x, flow, cflow)],
-           "warp_bwd_tangent": [t for t in warp.warp_bwd_tangent(x, flow, cot, cflow, need_x)
-                                if t is not None]}
-    torch.cuda.synchronize()
-    for name, tol in (("warp_fwd_tangent", 1e-5), ("warp_bwd_tangent", 1e-4)):
-        want = PLAIN_BN_CALLS[name](*((x, flow, cflow) if name == "warp_fwd_tangent"
-                                      else (x, flow, cot, cflow, need_x)))
-        err = max(float((g - w).abs().max()) for g, w in zip(got[name], want))
-        scale = max(float(w.abs().max()) for w in want)
-        ok = err <= tol * scale and len(got[name]) == len(want)
-        what = " +grad x" if need_x and "bwd" in name else ""
-        print(f"[kernel] {name:16s} {label} {shape} fp32{what} max|err| {err:.3e} "
-              f"(tol {tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name} {label} {shape}: {err} > {tol * scale}")
+    # (what, wrapper, its arguments, the tolerance of each output in order)
+    modes = [("T", warp.warp_fwd_tangent, (x, flow, cflow), [1e-5])]
+    for need_x in (False, True):
+        for need_t in (False, True):
+            what = "grad flow" + (" + grad x" if need_x else "") + (" + T" if need_t else "")
+            modes.append((what, warp.warp_bwd_tangent, (x, flow, cot, cflow, need_x, need_t),
+                          [1e-4] * (1 + need_x) + [1e-5] * need_t))
+    for what, fn, args, tols in modes:
+        out = fn(*args)
+        got = [out] if torch.is_tensor(out) else [t for t in out if t is not None]
+        torch.cuda.synchronize()
+        want = PLAIN_BN_CALLS[fn.__name__](*args)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        limits = [tol * float(w.abs().max()) for tol, w in zip(tols, want)]
+        ok = len(got) == len(want) == len(tols) and all(e <= m for e, m in zip(errs, limits))
+        print(f"[kernel] {fn.__name__:16s} {label} {shape} fp32 {what}: max|err| "
+              f"{', '.join(f'{e:.3e} (tol {m:.3e})' for e, m in zip(errs, limits))} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{fn.__name__} {label} {shape} {what}: {errs} > {limits}")
 
 
-def tangent_timing_row(name, args, smi: str) -> dict:
-    """K11 / K12 on the inputs of their largest call in a TOF meta update:
-    checked again, timed (wrapper_times) beside the plain formula and the
-    bound. No single PyTorch call computes either function."""
-    fn = getattr(warp, name)
-    plain = PLAIN_BN_CALLS[name]
-    need_x = bool(args[-1]) if name == "warp_bwd_tangent" else False
-    got = fn(*args)
-    got = [got] if torch.is_tensor(got) else [t for t in got if t is not None]
+def tangent_timing_row(args, smi: str) -> dict:
+    """The K11 / K12 kernel on the inputs of its largest call in a TOF meta
+    update (warp_bwd_tangent with the modes that call asked for): checked
+    again, timed (wrapper_times) beside the plain formulas and the bound.
+    No single PyTorch call computes these functions."""
+    name, fn, plain = "warp_bwd_tangent", warp.warp_bwd_tangent, PLAIN_BN_CALLS["warp_bwd_tangent"]
+    need_x, need_t = bool(args[4]), bool(args[5])
+    got = [t for t in fn(*args) if t is not None]
     want = plain(*args)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     shape = tuple(args[0].shape)
-    bound_ms, bound_by, nbytes, flops = warp_tangent_bound(name, shape, need_x)
-    t = wrapper_times(lambda: fn(*args), bound_ms, rtol=1e-5 if need_x else 0.0)
+    bound_ms, bound_by, nbytes, flops = warp_tangent_bound(shape, need_t, True, need_x)
+    rtol = [1e-5] * len(want) if need_x else 0.0
+    t = wrapper_times(lambda: fn(*args), bound_ms, rtol=rtol)
     plain_ms = cuda_ms(lambda: plain(*args), reps=5)
     label = warp_label("meta", shape)
     row = dict(name=name, label=label, dims=list(shape), dtype="float32", need_x=need_x,
-               max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               flops=flops, plain_ms=plain_ms, library_ms=None, **t)
-    print(f"[timing] {name:16s} {label} max|err| {err:.3e}  {times_text(row)}  plain "
-          f"{plain_ms:.4f} ms  library none  bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{nbytes / 1e6:.2f} MB)  roofline {row['roofline']:.1%} (kernel "
-          f"{row['kernel_roofline']:.1%})  [{smi}]")
+               need_t=need_t, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, plain_ms=plain_ms, library_ms=None, **t)
+    print(f"[timing] {name:16s} {label}{' +T' if need_t else ''}{' +grad x' if need_x else ''} "
+          f"max|err| {err:.3e}  {times_text(row)}  plain {plain_ms:.4f} ms  library none  "
+          f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)  roofline "
+          f"{row['roofline']:.1%} (kernel {row['kernel_roofline']:.1%})  [{smi}]")
     return row
 
 
@@ -2462,7 +2470,7 @@ def kink_probe(model, batch, gen: torch.Generator) -> dict:
 
 
 def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str) -> tuple:
-    """11a-11d; returns (measurements, K11 / K12 timing rows, 11a's launches)."""
+    """11a-11d; returns (measurements, the K11 / K12 timing row, 11a's launches)."""
     from dynavsr_tpu_torch.models.video_base_model import MetaModel
     from dynavsr_tpu_torch.train.meta import MetaConfig, meta_loss, meta_variables
 
@@ -2514,7 +2522,7 @@ def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str)
             launches = m["launches"]
 
         # 11c: one meta update with every kernel call held against its plain
-        # version, the second-order term as a whole, K11 / K12 timed.
+        # version, the second-order term as a whole, the K11 / K12 launch timed.
         module = warp if arch == "TOF" else duf_filter
         names = tuple(expect)
         model.feed_data(batch)
@@ -2531,11 +2539,12 @@ def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str)
         print(f"[meta2] 11c {arch}: one meta update's kernel calls vs plain (1e-4 of the "
               f"largest value): {worst}")
         check(not bad, f"11c {arch}: {len(bad)} calls off their plain version: {bad[:3]}")
-        check({k: n for k, (n, _) in by_kernel.items()} == expect,
+        called = {k: n for k, n in expect.items() if n}  # a count of 0: no call to check
+        check({k: n for k, (n, _) in by_kernel.items()} == called,
               f"11c {arch}: calls a meta update {by_kernel}")
         out[tag]["calls"] = {k: list(v) for k, v in by_kernel.items()}
         if arch == "TOF":
-            rows += [tangent_timing_row(name, keep[name], smi) for name in WARP_TANGENT_KERNELS]
+            rows.append(tangent_timing_row(keep["warp_bwd_tangent"], smi))
         del calls, keep
         torch.cuda.empty_cache()
 

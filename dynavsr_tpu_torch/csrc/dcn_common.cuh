@@ -2,11 +2,11 @@
 // dcn_bwd.cu, dcn_tangent.cu): element loads/stores for fp32 and bf16, the
 // bilinear sample with the CUDA reference's rule that each corner outside
 // the image contributes zero, and the channels-last gather and tensor-core
-// product that K1 dcn_fwd introduced and K2 / K3 / K8 / K10 reuse.
+// product that K1 dcn_fwd introduced and K2 / K3 / K8-K10 reuse.
 //
 // The weight rule. The gather blends a sample's 4 corners with weights
 // m * w_corner, w the bilinear weights (kTan false: K1-K3), or with their
-// derivative along an offset cotangent (cy, cx) (kTan true: K8, the
+// derivative along an offset cotangent (cy, cx) (kTan true: K8, K9, the
 // tangent columns of the DCN's second order):
 //   tw_corner = cy * d w_corner / dy + cx * d w_corner / dx
 // both 0 for a corner outside the frame.
@@ -155,8 +155,8 @@ struct Tile {
 };
 
 // The tiles of K1 and K3 are tpf tiles of each frame: `geo` is tpf. Those
-// of K8 (kFlat) walk the flattened (frame, pixel) index with frames `geo`
-// pixels apart, H * W rounded up to 4, so one tile spans frames and a
+// of K8 and K9 (kFlat) walk the flattened (frame, pixel) index with frames
+// `geo` pixels apart, H * W rounded up to 4, so one tile spans frames and a
 // thread's 4 pixels never straddle two; a quad past the last of the B
 // frames is placed past the end of the last one: every pixel off, every
 // read inside.

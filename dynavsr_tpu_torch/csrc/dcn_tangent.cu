@@ -33,164 +33,44 @@
 // (offsets -> positions -> corners), K10's atomics, and a grid that the
 // small frames leave mostly idle.
 //
-// Design. K8 is K1 with the tangent weight rule and K10 is K2 with it
-// (dcn_common.cuh, dcn_fwd.cuh, dcn_bwd_data.cuh; their notes in
-// dcn_fwd.cu and dcn_bwd.cu): x channels-last, a sample's 8 channels one
-// pair of 16-byte loads a corner, offsets / masks / cotangents loaded 4
-// pixels at a time (K8) or staged once a step in shared memory (K10), the
-// fp32 products as 8 px x 4 ch register tiles over float4 shared reads,
-// weight slices streamed by cp.async; K10's offset and mask gradients are
-// summed over each group in shared memory and stored once, without
-// atomics, and its grad x is gathered for near samples, with atomics left
-// for far samples and corners in another tile. To fill the card at the
-// inner step's small frames:
-//  - K8's 128-pixel tiles run over the flattened (frame, pixel) index (a
-//    tile spans frames; frames padded to 4 pixels, so vector loads stay
-//    whole) and a tile's 9 taps are split over 1, 3 or 9 blocks, whichever
-//    gives the fewest rounds of steps a block; split s > 0 writes its
-//    partial sums to a scratch and a second kernel adds them to the output
-//    in split order, so the result is deterministic.
+// Design. K8 is K1 with the tangent weight rule, K9 is K3 with it and K10
+// is K2 with it (dcn_common.cuh, dcn_fwd.cuh, dcn_bwd_weight.cuh,
+// dcn_bwd_data.cuh; their notes in dcn_fwd.cu and dcn_bwd.cu): x
+// channels-last, a sample's 8 channels one pair of 16-byte loads a corner,
+// its position and 4 tangent weights computed once for those 8 channels,
+// offsets / masks / cotangents loaded 4 pixels at a time (K8, K9) or staged
+// once a step in shared memory (K10), the fp32 products as register tiles
+// over float4 shared reads (8 px x 4 ch in K8 / K10, 4 o x 4 c in K9),
+// weight slices (K8, K10) and grad_out tiles (K9) streamed by cp.async;
+// K9 flushes its sums once a block with float4 atomics into a (9, Cout,
+// C) scratch that a second kernel writes out as OIHW; K10's offset and
+// mask gradients are summed over each group in shared memory and stored
+// once, without atomics, and its grad x is gathered for near samples, with
+// atomics left for far samples and corners in another tile. To fill the
+// card at the inner step's small frames:
+//  - K8's and K9's 128-pixel tiles run over the flattened (frame, pixel)
+//    index (a tile spans frames; frames padded to 4 pixels, so vector loads
+//    stay whole, and the padding's pixels give exact zeros). K8 splits a
+//    tile's 9 taps over 1, 3 or 9 blocks, whichever gives the fewest rounds
+//    of steps a block; split s > 0 writes its partial sums to a scratch and
+//    a second kernel adds them to the output in split order, so the result
+//    is deterministic. K9 gives each tap its own blocks, as K3 does: at
+//    40 x 8x8 that is 20 tiles x 9 = 180 blocks, at 4x4 5 x 9 = 45.
 //  - K10's 8 x 16 tiles hold several whole frames where they fit (frames of
 //    at most 8 rows and 4, 8 or 16 columns: the 8x8 and 4x4 levels), and
 //    K2's tap groups (1, 3 or 9 items a tile) split the taps over blocks;
 //    the items' grad x meets in one fp32 scratch by atomics, as in K2.
-// K9 keeps PR 9's design (a plain kernel over tangent columns built in
-// shared memory, one atomic an entry at the end).
 // fp32 only: the meta configs run fp32; a bf16 call raises in the wrapper.
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "dcn_bwd_data.cuh"
+#include "dcn_bwd_weight.cuh"
 #include "dcn_fwd.cuh"
 
 namespace dcn {
 namespace tng {
-
-// K9: PR 9's design.
-constexpr int kTP = 32;   // pixels per tile
-constexpr int kTC = 32;   // channels per chunk (one warp's lanes)
-constexpr int kTO = 64;   // output channels per block or product step
-constexpr int kTT = 256;  // threads per block
-constexpr int kRows = kTT / kTC;  // 8 warps: a warp's lanes are the chunk's channels
-
-// The corners of one sample and their tangent weights.
-struct Tan {
-  int idx[4];   // clamped pixel index of each corner in its plane
-  float tw[4];  // coff . d w / d pos, 0 outside the frame
-};
-
-__device__ __forceinline__ Tan tangent_at(int pix, int k, float dy, float dx, float cy, float cx,
-                                          int H, int W) {
-  Pre p;  // one round: dcn_common.cuh's clamped position
-  p.by[0] = (float)(pix / W - 1 + k / 3);
-  p.bx[0] = (float)(pix % W - 1 + k % 3);
-  p.dy[0] = dy;
-  p.dx[0] = dx;
-  p.on = 1u;
-  const Pos q = position(p, 0, H, W);
-  const float hy = 1.f - q.ly, hx = 1.f - q.lx;
-  const float wy[4] = {-hx, -q.lx, hx, q.lx};   // d w / dy: 00, 01, 10, 11
-  const float wx[4] = {-hy, hy, -q.ly, q.ly};   // d w / dx
-  const bool in[4] = {q.y0in && q.x0in, q.y0in && q.x1in, q.y1in && q.x0in, q.y1in && q.x1in};
-  Tan t;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    t.idx[c] = q.idx[c];
-    t.tw[c] = in[c] ? cy * wy[c] + cx * wx[c] : 0.f;
-  }
-  return t;
-}
-
-// The inputs of one (frame, group, tap, pixel) sample.
-struct Sample {
-  float dy, dx, cy, cx, m;
-};
-
-__device__ __forceinline__ Sample load_sample(const float* offset, const float* mask,
-                                              const float* coff, int b, int g, int k, int pix,
-                                              int gk, int hw) {
-  const int64_t och = ((int64_t)b * 2 * gk + 2 * (g * kTaps + k)) * hw + pix;
-  Sample s;
-  s.dy = offset[och];
-  s.dx = offset[och + hw];
-  s.cy = coff[och];
-  s.cx = coff[och + hw];
-  s.m = mask ? mask[((int64_t)b * gk + g * kTaps + k) * hw + pix] : 1.f;
-  return s;
-}
-
-// One tangent column value; xb is x (channels-last) at frame b, channel c.
-__device__ __forceinline__ float tangent_col(const float* xb, const float* offset,
-                                             const float* mask, const float* coff, int b, int g,
-                                             int k, int pix, int C, int H, int W, int gk) {
-  const Sample s = load_sample(offset, mask, coff, b, g, k, pix, gk, H * W);
-  const Tan t = tangent_at(pix, k, s.dy, s.dx, s.cy, s.cx, H, W);
-  float v = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) v = fmaf(__ldg(xb + (int64_t)t.idx[c] * C), t.tw[c], v);
-  return s.m * v;
-}
-
-// Fill the (32 channels x 32 pixels) tangent column tile of tap k, chunk
-// c0, pixel tile p0 of frame b: lane = channel, warp = pixel row.
-__device__ __forceinline__ void column_tile(float (*col)[kTP + 1], const float* x,
-                                            const float* offset, const float* mask,
-                                            const float* coff, int b, int p0, int k, int c0,
-                                            int C, int H, int W, int gd) {
-  const int hw = H * W, cg = C / gd, lane = threadIdx.x % kTC, row = threadIdx.x / kTC;
-  const int c = c0 + lane;
-  const float* xb = x + (int64_t)b * hw * C + (c < C ? c : 0);
-#pragma unroll
-  for (int i = 0; i < kTP / kRows; ++i) {
-    const int px = row + kRows * i, pix = p0 + px;
-    col[lane][px] = (c < C && pix < hw)
-                        ? tangent_col(xb, offset, mask, coff, b, c / cg, k, pix, C, H, W,
-                                      gd * kTaps)
-                        : 0.f;
-  }
-}
-
-// K9. Grid (blocks over pixel tiles, 9 * nch, ceil(Cout / 64)); gw (Cout,
-// C, 3, 3) fp32, zeroed by the launcher.
-__global__ void __launch_bounds__(kTT)
-dcn_bwd_weight_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                              const float* __restrict__ mask, const float* __restrict__ coff,
-                              const float* __restrict__ grad_out, float* __restrict__ gw, int C,
-                              int H, int W, int Cout, int gd, int tpf, int ntiles, int nch) {
-  __shared__ float col[kTC][kTP + 1];
-  __shared__ float gos[kTO][kTP + 1];
-  const int hw = H * W, k = blockIdx.y / nch, c0 = (blockIdx.y % nch) * kTC;
-  const int o0 = blockIdx.z * kTO, oo = threadIdx.x % kTO, cgp = threadIdx.x / kTO;
-  float acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int b = tile / tpf, p0 = (tile % tpf) * kTP;
-    column_tile(col, x, offset, mask, coff, b, p0, k, c0, C, H, W, gd);
-    for (int e = threadIdx.x; e < kTO * kTP; e += kTT) {
-      const int o = e / kTP, px = e % kTP;
-      gos[o][px] = (o0 + o < Cout && p0 + px < hw)
-                       ? grad_out[((int64_t)b * Cout + o0 + o) * hw + p0 + px] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int px = 0; px < kTP; ++px) {
-      const float g = gos[oo][px];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = fmaf(g, col[cgp * 8 + j][px], acc[j]);
-    }
-    __syncthreads();
-  }
-  const int o = o0 + oo;
-  if (o >= Cout) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = c0 + cgp * 8 + j;
-    if (c < C) atomicAdd(gw + ((int64_t)o * C + c) * kTaps + k, acc[j]);
-  }
-}
-
 
 // K8's last pass: out += the partial sums of splits 1 .. nparts, in order.
 __global__ void __launch_bounds__(256) sum_parts(float* __restrict__ out,
@@ -227,6 +107,24 @@ dcn_fwd_tangent_kernel(const float* __restrict__ x, const float* __restrict__ of
                        int stride, int nitems, int nch, int nsplit, int64_t n_out, bool quads) {
   fwd::fwd_body<float, kVec, true>(x, offset, mask, coff, wt, nullptr, out, part, B, C, H, W,
                                    Cout, gd, stride, nitems, nch, nsplit, n_out, quads);
+}
+
+// K9: K3's body with the tangent rule, on tiles across frames.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+dcn_bwd_weight_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                              const float* __restrict__ mask, const float* __restrict__ coff,
+                              const float* __restrict__ gout, float* __restrict__ gw, int B,
+                              int C, int H, int W, int Cout, int gd, int stride, int ntiles,
+                              int c_tiles, bool quads, bool gvec) {
+  bwd::bwd_weight_body<float, kVec, true>(x, offset, mask, coff, gout, gw, B, C, H, W, Cout, gd,
+                                          stride, ntiles, c_tiles, quads, gvec);
+}
+
+// K9's last pass: its (9, Cout, C) scratch out as (Cout, C, 3, 3).
+__global__ void __launch_bounds__(256)
+gw_tangent_to_oihw(const float* __restrict__ s, float* __restrict__ gw, int Cout, int C) {
+  bwd::scratch_to_oihw(s, gw, Cout, C);
 }
 
 // K10: K2's body with the tangent rule, and its element-by-element form.
@@ -348,6 +246,33 @@ static int launch_data(const float* x, const float* offset, const float* mask,
   return 0;
 }
 
+// K9: the grad_out and column tiles (K3's), 64 KB.
+constexpr size_t kWeightSmem = (kP * kCK + kN * kP) * sizeof(float);
+
+// K9 on the flat tiles of K8 (frames padded to 4 pixels), one block a (tap,
+// channel chunk, out-chunk) and a share of the tiles, as many blocks as the
+// card holds at once; gsc the (9, Cout, C) scratch, zeroed before.
+template <bool kVec>
+static int launch_weight(const float* x, const float* offset, const float* mask,
+                         const float* coff, const float* gout, float* gsc, int B, int C, int H,
+                         int W, int Cout, int gd, cudaStream_t s) {
+  auto kernel = dcn_bwd_weight_tangent_kernel<kVec>;
+  static Slots memo[16];
+  const int slots = grid_slots(kernel, kWeightSmem, memo);
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const int hw = H * W, stride = (hw + 3) / 4 * 4;
+  const int ntiles = (int)(((int64_t)B * stride + kP - 1) / kP);
+  const int c_tiles = (C + kCK - 1) / kCK, gy = kTaps * c_tiles * ((Cout + kN - 1) / kN);
+  const int gxn = std::min(ntiles, std::max(1, slots / gy));
+  const bool quads = hw % 4 == 0 && (uintptr_t)offset % 16 == 0 &&
+                     (uintptr_t)mask % 16 == 0 && (uintptr_t)coff % 16 == 0;
+  const bool gvec = hw % 4 == 0 && (uintptr_t)gout % 16 == 0;
+  kernel<<<dim3(gxn, gy), kThreads, kWeightSmem, s>>>(x, offset, mask, coff, gout, gsc, B, C, H,
+                                                      W, Cout, gd, stride, ntiles, c_tiles,
+                                                      quads, gvec);
+  return 0;
+}
+
 }  // namespace tng
 }  // namespace dcn
 
@@ -378,22 +303,28 @@ extern "C" int dcn_fwd_tangent(const void* x_cl, const void* offset, const void*
              (cudaStream_t)stream);
 }
 
-// grad_out (B, Cout, H, W); gw (Cout, C, 3, 3), zeroed here.
+// grad_out (B, Cout, H, W); gsc: fp32 scratch of 9*Cout*C; gw (Cout, C, 3,
+// 3), needs no initialising.
 extern "C" int dcn_bwd_weight_tangent(const void* x_cl, const void* offset, const void* mask,
-                                      const void* coff, const void* grad_out, void* gw, int B,
-                                      int C, int H, int W, int Cout, int gd, void* stream) {
+                                      const void* coff, const void* grad_out, void* gsc, void* gw,
+                                      int B, int C, int H, int W, int Cout, int gd,
+                                      void* stream) {
   using namespace dcn::tng;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaMemsetAsync(gw, 0, sizeof(float) * (size_t)Cout * C * dcn::kTaps, s);
-  if (B == 0 || H * W == 0 || Cout == 0 || C == 0) return (int)cudaGetLastError();
-  const int tpf = (H * W + kTP - 1) / kTP, ntiles = B * tpf, nch = (C + kTC - 1) / kTC;
-  const int gx = std::max(1, (ntiles + 7) / 8);  // 8 pixel tiles a block
-  dcn_bwd_weight_tangent_kernel<<<dim3(gx, dcn::kTaps * nch, (Cout + kTO - 1) / kTO), kTT, 0, s>>>(
-      (const float*)x_cl, (const float*)offset, (const float*)mask, (const float*)coff,
-      (const float*)grad_out, (float*)gw, C, H, W, Cout, gd, tpf, ntiles, nch);
+  if (Cout == 0 || C == 0) return 0;
+  const int n = dcn::kTaps * Cout * C;
+  cudaMemsetAsync(gsc, 0, sizeof(float) * (size_t)n, s);
+  if (B > 0 && H * W > 0) {
+    auto run = vec_shape(C, gd) ? launch_weight<true> : launch_weight<false>;
+    const int rc = run((const float*)x_cl, (const float*)offset, (const float*)mask,
+                       (const float*)coff, (const float*)grad_out, (float*)gsc, B, C, H, W, Cout,
+                       gd, s);
+    if (rc != 0) return rc;
+  }
+  gw_tangent_to_oihw<<<std::max(1, std::min((n + 255) / 256, 1024)), 256, 0, s>>>(
+      (const float*)gsc, (float*)gw, Cout, C);
   return (int)cudaGetLastError();
 }
-
 
 // wt (9, Cout, C); grad_out (B, Cout, H, W); gx_cl (B, H, W, C), zeroed
 // here; goff as offset, gmask as mask (null without a mask), need no

@@ -27,8 +27,9 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("dcn_fwd", "dcn_bwd", "dcn_tangent", "warp_fwd", "warp_bwd", "warp_tangent",
            "duf_fwd", "duf_bwd")
 _HEADERS = {"dcn_fwd": ("dcn_common.cuh", "dcn_fwd.cuh"),
-            "dcn_bwd": ("dcn_common.cuh", "dcn_bwd_data.cuh"),
-            "dcn_tangent": ("dcn_common.cuh", "dcn_fwd.cuh", "dcn_bwd_data.cuh"),
+            "dcn_bwd": ("dcn_common.cuh", "dcn_bwd_data.cuh", "dcn_bwd_weight.cuh"),
+            "dcn_tangent": ("dcn_common.cuh", "dcn_fwd.cuh", "dcn_bwd_data.cuh",
+                            "dcn_bwd_weight.cuh"),
             "warp_fwd": ("warp_common.cuh",), "warp_bwd": ("warp_common.cuh",),
             "warp_tangent": ("warp_common.cuh",),
             "duf_fwd": ("duf_common.cuh",), "duf_bwd": ("duf_common.cuh",)}
@@ -45,12 +46,11 @@ _SIGNATURES = {
     "dcn_bwd_weight": [_VP] * 6 + [_I] * 7 + [_VP],
     "dcn_fwd_tangent": [_VP] * 7 + [_I] * 7 + [_VP],
     "dcn_fwd_tangent_splits": [_I] * 6,
-    "dcn_bwd_weight_tangent": [_VP] * 6 + [_I] * 6 + [_VP],
+    "dcn_bwd_weight_tangent": [_VP] * 7 + [_I] * 6 + [_VP],
     "dcn_bwd_data_tangent": [_VP] * 9 + [_I] * 7 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
-    "warp_fwd_tangent": [_VP] * 4 + [_I] * 4 + [_VP],
-    "warp_bwd_tangent": [_VP] * 6 + [_I] * 4 + [_VP],
+    "warp_bwd_tangent": [_VP] * 7 + [_I] * 4 + [_VP],
     "duf_fwd": [_VP] * 3 + [_I] * 6 + [_VP],
     "duf_bwd": [_VP] * 5 + [_I] * 6 + [_VP],
 }

@@ -234,16 +234,18 @@ def dcn_fwd_tangent(x, offset, mask, weight, coff, deformable_groups: int) -> to
 def dcn_bwd_weight_tangent(x, offset, mask, grad_out, coff, deformable_groups: int
                            ) -> torch.Tensor:
     """K9: sum over pixels of grad_out (x) the tangent columns, (Cout, C, 3,
-    3), on fp32 CUDA tensors."""
+    3), on fp32 CUDA tensors. Blocks sum with atomics into a (9, Cout, C)
+    scratch, which a second pass writes out."""
     global bwd_weight_tangent_launches
     b, c, h, w = x.shape
     cout = grad_out.shape[1]
     x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
                                "K9 dcn_bwd_weight_tangent", grad_out=grad_out)
+    gsc = torch.empty(9 * cout * c, dtype=torch.float32, device=x.device)
     gw = torch.empty((cout, c, 3, 3), dtype=x.dtype, device=x.device)
     rc = _build.load("dcn_tangent").dcn_bwd_weight_tangent(
         x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), t["grad_out"].data_ptr(),
-        gw.data_ptr(), b, c, h, w, cout, deformable_groups, _build.stream(x))
+        gsc.data_ptr(), gw.data_ptr(), b, c, h, w, cout, deformable_groups, _build.stream(x))
     _build.raise_if(rc, "dcn_bwd_weight_tangent")
     bwd_weight_tangent_launches += 1
     return gw

@@ -9,9 +9,10 @@ and warps in fp32 in bf16 mode too, as the JAX model does.
 
 Second order (TOF's meta-training, a gradient of a gradient): the backward
 runs K5 through `WarpBwdFunction`, whose own backward is K4 / K5 on other
-inputs plus the terms along the flow cotangent, K11 `warp_fwd_tangent` and
-K12 `warp_bwd_tangent` (csrc/warp_tangent.cu). A first-order backward
-launches K5 once, as before; a third backward raises.
+inputs plus the terms along the flow cotangent, K11's T and K12's
+gradients, which one kernel computes in one launch (csrc/warp_tangent.cu;
+`warp_bwd_tangent`, or `warp_fwd_tangent` for T alone). A first-order
+backward launches K5 once, as before; a third backward raises.
 
 `warp_nchw` is what TOFlow calls, on NCHW planes (the kernels' own layout,
 so no permute copy around a launch). `flow_warp` keeps the JAX package's
@@ -111,39 +112,47 @@ def warp_bwd(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor, need_x
     return gx, gflow
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _tangent_launch(x, flow, grad_out, cflow, t_out, gx, gflow) -> None:
+    """The K11 / K12 kernel, computing the outputs that are not None."""
+    b, c, h, w = x.shape
+    rc = _build.load("warp_tangent").warp_bwd_tangent(
+        x.data_ptr(), flow.data_ptr(), _ptr(grad_out), cflow.data_ptr(), _ptr(t_out), _ptr(gx),
+        _ptr(gflow), b, c, h, w, _build.stream(x))
+    _build.raise_if(rc, "warp_bwd_tangent")
+
+
 def warp_fwd_tangent(x: torch.Tensor, flow: torch.Tensor, cflow: torch.Tensor) -> torch.Tensor:
     """K11 on CUDA tensors: the warp's derivative along the flow tangent
-    cflow (B, 2, H, W), (B, C, H, W)."""
+    cflow (B, 2, H, W), (B, C, H, W): the K11 / K12 kernel with T alone."""
     global fwd_tangent_launches
     cflow = cflow.contiguous()
     _check(x, flow, cflow=cflow)
-    b, c, h, w = x.shape
     out = torch.empty_like(x)
-    rc = _build.load("warp_tangent").warp_fwd_tangent(
-        x.data_ptr(), flow.data_ptr(), cflow.data_ptr(), out.data_ptr(), b, c, h, w,
-        _build.stream(x))
-    _build.raise_if(rc, "warp_fwd_tangent")
+    _tangent_launch(x, flow, None, cflow, out, None, None)
     fwd_tangent_launches += 1
     return out
 
 
 def warp_bwd_tangent(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
-                     cflow: torch.Tensor, need_x: bool
-                     ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """K12 on CUDA tensors: the gradient of <cflow, K5's grad flow> in
-    (x, or None unless `need_x`; flow)."""
+                     cflow: torch.Tensor, need_x: bool, need_t: bool = False
+                     ) -> Tuple[Optional[torch.Tensor], torch.Tensor, Optional[torch.Tensor]]:
+    """K12 on CUDA tensors, with K11 in the same launch on request: (the
+    gradient of <cflow, K5's grad flow> in x, or None unless `need_x`; its
+    gradient in flow; T = warp_fwd_tangent(x, flow, cflow), or None unless
+    `need_t`)."""
     global bwd_tangent_launches
     grad_out, cflow = grad_out.contiguous(), cflow.contiguous()
     _check(x, flow, grad_out, cflow)
-    b, c, h, w = x.shape
     gx = torch.zeros_like(x) if need_x else None
     gflow = torch.empty_like(flow)
-    rc = _build.load("warp_tangent").warp_bwd_tangent(
-        x.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), cflow.data_ptr(),
-        None if gx is None else gx.data_ptr(), gflow.data_ptr(), b, c, h, w, _build.stream(x))
-    _build.raise_if(rc, "warp_bwd_tangent")
+    t = torch.empty_like(x) if need_t else None
+    _tangent_launch(x, flow, grad_out, cflow, t, gx, gflow)
     bwd_tangent_launches += 1
-    return gx, gflow
+    return gx, gflow, t
 
 
 class WarpFunction(torch.autograd.Function):
@@ -169,8 +178,9 @@ class WarpBwdFunction(torch.autograd.Function):
       grad_out <- K4(Cx, flow) + K11(x, flow, Cf)
       flow     <- K5(Cx, flow, grad_out).grad_flow + K12(x, flow, grad_out, Cf).grad_flow
       x        <- K12(...).grad_x
-    A cotangent that is None or all zero skips its launches. A third
-    backward raises."""
+    K11 and K12 are one launch where both are needed (warp_bwd_tangent
+    with need_t). A cotangent that is None or all zero skips its launches.
+    A third backward raises."""
 
     @staticmethod
     def forward(ctx, x, flow, grad_out, need_x):
@@ -193,11 +203,14 @@ class WarpBwdFunction(torch.autograd.Function):
             if need[1]:
                 gflow = warp_bwd(cx, flow, go, need_x=False)[1]
         if cflow is not None:
-            if need[2]:
-                ggo = _build.accumulate(ggo, warp_fwd_tangent(x, flow, cflow))
             if need[0] or need[1]:
-                gx, t_flow = warp_bwd_tangent(x, flow, go, cflow, need_x=need[0])
+                gx, t_flow, t = warp_bwd_tangent(x, flow, go, cflow, need_x=need[0],
+                                                 need_t=need[2])
                 gflow = _build.accumulate(gflow, t_flow)
+            elif need[2]:
+                t = warp_fwd_tangent(x, flow, cflow)
+            if need[2]:
+                ggo = _build.accumulate(ggo, t)
         return gx, gflow if need[1] else None, ggo, None
 
 

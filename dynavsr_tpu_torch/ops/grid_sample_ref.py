@@ -16,7 +16,8 @@ arithmetic on NCHW planes, the layout the port's TOFlow holds inside.
 `warp_fwd_tangent_ref` and `warp_bwd_tangent_ref` are the plain versions of
 K11 and K12, the warp's second order (ops/grid_sample.py:WarpBwdFunction),
 written out as explicit formulas over the four corners, as autograd of
-`warp_nchw` differentiates it twice. The tests hold them against
+`warp_nchw` differentiates it twice; `warp_tangents_ref` is both, as the
+one kernel that computes them returns them. The tests hold them against
 `torch.func.jvp` and double autograd; nothing on the card's path runs
 them.
 """
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bilinear_sample", "grid_sample", "flow_warp", "sample_nchw", "warp_nchw",
-           "flow_grid", "warp_fwd_tangent_ref", "warp_bwd_tangent_ref"]
+           "flow_grid", "warp_fwd_tangent_ref", "warp_bwd_tangent_ref", "warp_tangents_ref"]
 
 
 def sample_nchw(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -124,6 +125,15 @@ def warp_bwd_tangent_ref(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Te
         src = (grad_out * dw * inside).reshape(b, c, h * w)
         gx.scatter_add_(2, idx.expand(b, c, h * w), src)
     return gx.reshape(b, c, h, w), gflow
+
+
+def warp_tangents_ref(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
+                      cflow: torch.Tensor, need_x: bool, need_t: bool = False):
+    """K12's function with K11's beside it, as ops/grid_sample.warp_bwd_tangent
+    returns them: (grad x or None unless `need_x`, grad flow, T or None
+    unless `need_t`)."""
+    gx, gflow = warp_bwd_tangent_ref(x, flow, grad_out, cflow, need_x)
+    return gx, gflow, warp_fwd_tangent_ref(x, flow, cflow) if need_t else None
 
 
 def bilinear_sample(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's kernels on one card, apart from their wrappers: the
 DCN's K1-K3 and its second order K8-K10 at the meta inner step's calls,
-the warp's K4 / K5 and its second order K11 / K12, the DUF filter's K6 /
-K7.
+the warp's K4 / K5 and its second order K11 / K12 (one kernel, timed in
+each of its modes), the DUF filter's K6 / K7.
 
     python3 kernel_times.py [--root DIR] [--tag NAME] [--out FILE]
 
@@ -32,6 +32,7 @@ nvidia-smi name and power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import os
@@ -319,18 +320,27 @@ def main() -> None:
 
         # K11 / K12 at TOF's meta-training calls (8 windows): the inner step's
         # SLR pre-upscaled to 64x64 (where a meta update runs them) and the outer
-        # 256x256; K12 also with grad x, summed with atomics.
+        # 256x256: T alone, grad flow alone, both in one launch (a tree whose
+        # warp_bwd_tangent takes need_t: the double backward's call), grad
+        # flow with grad x (summed with atomics). Bytes: each input read once,
+        # each output written once (chip_smoke.warp_tangent_bound's rule).
         if hasattr(warp, "warp_fwd_tangent"):  # an older checkout (--root) has none
+            one_launch = "need_t" in inspect.signature(warp.warp_bwd_tangent).parameters
+            k11 = "warp_bwd_tangent_kernel" if one_launch else "warp_fwd_tangent_kernel"
             for h, w in ((64, 64), (256, 256)):
                 x, flow, cot = warp_inputs(8, 3, h, w)
                 cflow = torch.randn(8, 2, h, w, generator=gen, device="cuda")
                 px = 8 * h * w
                 timed("warp_fwd_tangent", f"meta 8x{h}x{w}",
-                      lambda: warp.warp_fwd_tangent(x, flow, cflow), px * (2 * 3 + 4) * 4,
-                      "warp_fwd_tangent_kernel")
+                      lambda: warp.warp_fwd_tangent(x, flow, cflow), px * (2 * 3 + 4) * 4, k11)
                 timed("warp_bwd_tangent", f"meta 8x{h}x{w}",
                       lambda: warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=False),
                       px * (2 * 3 + 6) * 4, "warp_bwd_tangent_kernel")
+                if one_launch:
+                    timed("warp_bwd_tangent", f"meta 8x{h}x{w} +T",
+                          lambda: warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=False,
+                                                        need_t=True),
+                          px * (3 * 3 + 6) * 4, "warp_bwd_tangent_kernel")
                 timed("warp_bwd_tangent", f"meta 8x{h}x{w} +grad x",
                       lambda: warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=True),
                       px * (3 * 3 + 6) * 4, "warp_bwd_tangent_kernel", rtol=1e-5)

@@ -153,8 +153,7 @@ def _stand_ins(op, monkeypatch):
             grid_sample_ref.warp_nchw, (x, flow), (need_x, True), grad_out)))
         monkeypatch.setattr(warp, "warp_fwd_tangent",
                             detached(grid_sample_ref.warp_fwd_tangent_ref))
-        monkeypatch.setattr(warp, "warp_bwd_tangent",
-                            detached(grid_sample_ref.warp_bwd_tangent_ref))
+        monkeypatch.setattr(warp, "warp_bwd_tangent", detached(grid_sample_ref.warp_tangents_ref))
     elif op == "duf":
         monkeypatch.setattr(duf_filter, "duf_fwd", detached(dynamic_upsampling_filter_ref))
         monkeypatch.setattr(duf_filter, "duf_bwd", lambda x, f, grad_out, need_x: tuple(vjp(

@@ -4,8 +4,8 @@ the terms of its second order along an offset cotangent, K8
 dcn_fwd_tangent, K9 dcn_bwd_weight_tangent and K10 dcn_bwd_data_tangent
 (ops/dcn_ref.py's *_tangent_ref, fp32 only),
 the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py)
-and its second order's K11 warp_fwd_tangent and K12 warp_bwd_tangent
-(grid_sample_ref's *_tangent_ref), and DUF's dynamic upsampling filter K6
+and its second order's K11 warp_fwd_tangent and K12 warp_bwd_tangent,
+one kernel (grid_sample_ref's *_tangent_ref), and DUF's dynamic upsampling filter K6
 duf_fwd and K7 duf_bwd (ops/duf_filter_ref.py).
 
 Every test here is gpu-marked and skips without a card. This file imports no JAX, so on
@@ -334,10 +334,11 @@ def test_warp_kernel_far_outside_positions_give_exact_zeros(cuda):
     out = warp.warp_fwd(x, flow)
     gx, gf = warp.warp_bwd(x, flow, cot, need_x=True)
     tangent = warp.warp_fwd_tangent(x, flow, torch.ones_like(flow))
-    tx, tf = warp.warp_bwd_tangent(x, flow, cot, torch.ones_like(flow), need_x=True)
+    tx, tf, tt = warp.warp_bwd_tangent(x, flow, cot, torch.ones_like(flow), need_x=True,
+                                       need_t=True)
     torch.cuda.synchronize()
     assert not out.any() and not gx.any() and not gf.any()
-    assert not tangent.any() and not tx.any() and not tf.any()
+    assert not tangent.any() and not tx.any() and not tf.any() and not tt.any()
 
 
 # TOF's meta-training warps (8 windows x 3 channels at the inner step's 64x64
@@ -349,20 +350,28 @@ def test_warp_kernel_far_outside_positions_give_exact_zeros(cuda):
                          ids=["meta64", "meta256", "meta8", "c3", "c5", "w1"])
 @pytest.mark.parametrize("need_x", [True, False], ids=["grad_x", "flow_only"])
 def test_warp_tangent_kernels_match_plain(cuda, shape, need_x):
-    """K11 and K12 against their explicit plain formulas on white-noise
-    flows (some on integer positions) and tangents."""
+    """The K11 / K12 kernel against the explicit plain formulas on
+    white-noise flows (some on integer positions) and tangents, in each of
+    its modes: T alone (warp_fwd_tangent), the gradients alone, both in one
+    launch. T within 1e-5 of the largest reference value (the same
+    products), the gradients 1e-4 (a sum over channels; grad x by
+    atomics)."""
     x, flow, cot = _warp_inputs(*shape, cuda, seed=sum(shape) + 1)
     g = torch.Generator(device="cpu").manual_seed(9)
     cflow = torch.randn(flow.shape, generator=g).to(cuda)
-    got = warp.warp_fwd_tangent(x, flow, cflow)
-    gx, gf = warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=need_x)
+    want_t = grid_sample_ref.warp_fwd_tangent_ref(x, flow, cflow)
     want_gx, want_gf = grid_sample_ref.warp_bwd_tangent_ref(x, flow, cot, cflow, need_x)
-    torch.cuda.synchronize()
-    _close(got, grid_sample_ref.warp_fwd_tangent_ref(x, flow, cflow), 1e-5)
-    _close(gf, want_gf, 1e-4)
-    assert (gx is None) == (not need_x)
-    if need_x:
-        _close(gx, want_gx, 1e-4)
+    got = warp.warp_fwd_tangent(x, flow, cflow)
+    _close(got, want_t, 1e-5)
+    for need_t in (False, True):
+        gx, gf, t = warp.warp_bwd_tangent(x, flow, cot, cflow, need_x=need_x, need_t=need_t)
+        torch.cuda.synchronize()
+        _close(gf, want_gf, 1e-4)
+        assert (gx is None) == (not need_x) and (t is None) == (not need_t)
+        if need_x:
+            _close(gx, want_gx, 1e-4)
+        if need_t:
+            _close(t, want_t, 1e-5)
 
 
 @pytest.mark.gpu
@@ -508,11 +517,15 @@ def test_duf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # pyramid's three levels, Gd 8) and small edge shapes (C < 8, C = 128, one
 # pixel tile past a tile's end; C = 48, whose groups at Gd 8 (6 channels)
 # miss the 8-channel vector path, on a 13x21 frame, a multiple neither of 4
-# pixels nor of a tile; a batch of 3 frames of 4x4, less than one tile).
+# pixels nor of a tile; a batch of 3 frames of 4x4, less than one tile;
+# frames of 5x5 and 5x3, whose H * W is no multiple of 4, so the tiles that
+# run across frames (K8, K9) pad each frame and straddle frames, on the
+# vector path and, with C = 16 at Gd 8, off it).
 TANGENT_SHAPES = {"meta16": (40, 64, 64, 16, 16), "meta8": (40, 64, 64, 8, 8),
                   "meta4": (40, 64, 64, 4, 4), "small": (3, 8, 6, 9, 7),
                   "wide": (1, 128, 64, 11, 3), "c48": (2, 48, 48, 13, 21),
-                  "subtile": (3, 64, 64, 4, 4)}
+                  "subtile": (3, 64, 64, 4, 4), "pad5": (40, 64, 64, 5, 5),
+                  "pad5c16": (7, 16, 16, 5, 3)}
 
 
 def _tangent_inputs(shape, gd, offsets, device):
@@ -606,8 +619,8 @@ def _second_order_case(op, device):
 def test_double_backward_through_the_kernels_raises(cuda, op):
     """The second order through the kernels: the grad-of-grad matches plain
     autograd's (1e-4 of the largest value, fp32 atomics), launching the
-    tangent kernels where the op has them (the DCN's K8 and K10, the
-    warp's K11 and K12, once each), and the third backward raises."""
+    tangent kernels where the op has them (the DCN's K8 and K10 once each,
+    the warp's K11 and K12 in one launch), and the third backward raises."""
     fn, theta = _second_order_case(op, cuda)
     x, _, mask, weight, bias, _ = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=7)
 
@@ -636,8 +649,9 @@ def test_double_backward_through_the_kernels_raises(cuda, op):
     _close(got, grad_of_grad(plain), 1e-4)
     tangents = {"dcn": {"dcn_fwd_tangent": 1, "dcn_bwd_weight_tangent": 0,
                         "dcn_bwd_data_tangent": 1},
-                "warp": {"warp_fwd_tangent": 1, "warp_bwd_tangent": 1}}.get(op, {})
-    # Only theta and grad_out need gradients here: the DCN's K8 and K10, no K9.
+                "warp": {"warp_fwd_tangent": 0, "warp_bwd_tangent": 1}}.get(op, {})
+    # Only theta and grad_out need gradients here: the DCN's K8 and K10, no K9;
+    # the warp's T and grad flow in one launch.
     assert {k: counts[k] for k in tangents} == tangents, counts
     tt, gg = first(fn)
     third = {"dcn": "K8-K10", "warp": "K11, K12", "duf": "K6, K7"}[op]
