@@ -175,6 +175,37 @@ Phases; any failure raises and exits non-zero:
               in float64, beside the share of samples on and within one
               fp32 ulp of a bilinear kink (reported, not checked). Prints a
               `[meta2] {json}` line.
+ 12. tiles    tiled inference (eval/tiled.py; every tile of a call's windows
+              in one batch, as in JAX): 12a test_DynaVSR_Vid4.yml's EDVR-M x4
+              + MFDN through run_clip on a 7-frame smooth clip at LR 540x960
+              (-> 2160x3840), adapted on its 7 windows, then whole-frame at
+              infer_chunk 1, eval.tile 256 / overlap 32 at infer_chunk 1 and
+              2: s/clip, frames/s and peak memory of each run, and one
+              forward of a chunk alone (s a frame, its own peak memory),
+              K1 = 4 a forward call + 20, max |tiled - whole| and the PSNR between them
+              (EDVR is not tile-exact: reported, finiteness checked), one K1
+              call on the tile batch (75 frames of 256^2) against the plain
+              DCN at phase 3's tolerance; 12b DUF-16L fp32 on phase 6's
+              windows, tile 64 / overlap 12: tiled == whole within 1e-4;
+              12c create_model's make_infer_fn with eval.tile 128 / overlap
+              32 on 8a's clip and weights: max |tiled - 8a| reported, K1 as
+              counted, make_seq_infer_fn None. Prints a `[tiles] {json}` line.
+ 13. stream   online serving (eval/streaming.py) of phases 4-6's nets: 13a
+              StreamingSR EDVR-M + the MFDN adapter (K 8, 5 Adam steps, lr
+              1e-6) on phase 4's clip, fp32 == phase 4's window-batched
+              run_clip within 1e-4 (bf16: the gap printed beside phase 4's
+              windows-vs-seq gap); 13b WindowStreamSR TOF and DUF-16L with
+              the train_ema adapter on phases 5 / 6's clips, == their
+              run_clip within 1e-4; 13c MultiStreamSR B = 4 EDVR-M fp32 on
+              four clips of other seeds, shared and adapted in G = 1 / 2 / 4
+              groups, each stream == its reference construction within 1e-4.
+              Checks a steady EDVR push launches K1 4 times (TOF K4 30, DUF
+              K6 1) and an EDVR warm-up K2 = K3 = 20. Reports the warm-up
+              push's s, steady ms/frame (median over emitting pushes, the
+              card synchronised around each), host us a push until push()
+              returns, ms/frame/stream for each G, peak memory, and one
+              steady push under utils/observability.profile_trace (busy /
+              idle share, top operations), as a `[stream] {json}` line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -185,6 +216,7 @@ import argparse
 import copy
 import json
 import math
+import os.path as osp
 import shutil
 import subprocess
 import sys
@@ -196,7 +228,7 @@ import torch
 
 import torch.nn.functional as F
 
-from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig, make_adapt_fn
+from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig, chunked_apply, make_adapt_fn
 from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator, run_clip
 from dynavsr_tpu_torch.data.degradations import duf_downsample
 from dynavsr_tpu_torch.data.resize import imresize
@@ -205,11 +237,18 @@ from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.convert_img import tensor2img
 from dynavsr_tpu_torch.eval.harness import evaluate_dataset, score_frames
 from dynavsr_tpu_torch.eval.metrics import calculate_psnr
+from dynavsr_tpu_torch.eval.streaming import (
+    MultiStreamSR,
+    StreamingSR,
+    WindowStreamSR,
+    make_streaming_adapter,
+)
+from dynavsr_tpu_torch.eval.tiled import make_tiled_apply, tile_plan
 from dynavsr_tpu_torch.models import duf as duf_module
 from dynavsr_tpu_torch.models import edvr as edvr_module
 from dynavsr_tpu_torch.models import tof as tof_module
 from dynavsr_tpu_torch.models.networks import define_G
-from dynavsr_tpu_torch.models.padding import make_model_apply
+from dynavsr_tpu_torch.models.padding import make_model_apply, make_mutable_model_apply
 from dynavsr_tpu_torch.models.video_base_model import create_model
 from dynavsr_tpu_torch.ops import _build, dcn, duf_filter, grid_sample_ref
 from dynavsr_tpu_torch.ops import grid_sample as warp
@@ -220,6 +259,7 @@ from dynavsr_tpu_torch.ops.dcn_ref import (
     deform_conv2d_ref,
 )
 from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
+from dynavsr_tpu_torch.utils.observability import profile_trace
 from kernel_times import REPS, graph_ms, host_us
 from kernel_times import event_ms as cuda_ms
 
@@ -843,8 +883,11 @@ def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
         calls[dt_name] = record_dcn_calls(lambda: clip(model, seq=False))
         print(f"[main] {dt_name}-windows DCN calls per clip: "
               f"{ {k: v['count'] for k, v in calls[dt_name].items()} }")
+    # Phase 13 serves the same nets and holds its streams against these clips.
+    ctx = dict(vsr32=vsr32, vsr16=vsr16, est=est, d16=d16,
+               sr={dt: results[f"{dt}-windows"]["sr"] for dt in ("fp32", "bf16")})
     return launches, {k: {kk: vv for kk, vv in v.items() if kk != "sr"}
-                      for k, v in results.items()}, profiles, calls
+                      for k, v in results.items()}, profiles, calls, ctx
 
 
 def record_dcn_calls(run) -> dict:
@@ -942,7 +985,7 @@ def phase_bn_net(tag: str, net_g: dict, frames: int, kernels, expect_fn, swap, s
         for name in set(counts) - set(kernels):
             check(counts[name] == 0, f"{mode}: {tag} launched {name}")
         if dt_name == "fp32":
-            launches = counts
+            launches, ctx = counts, dict(net=model, est=est, sr=sr)
         score = score_frames(sr, gt, ycbcr=True, crop_border=crop)
         results[mode] = dict(fps=CLIP_T / secs, secs=secs, peak=peak, losses=losses,
                              counts=counts, psnr=score["psnr_avg"], ssim=score["ssim_avg"])
@@ -982,7 +1025,7 @@ def phase_bn_net(tag: str, net_g: dict, frames: int, kernels, expect_fn, swap, s
         print(f"[{tag}] {mode} {attr} calls per clip: "
               f"{ {k: (v['count'], v['bwd']) for k, v in calls[dt_name].items()} } "
               "(kind BxHxW: (forward, backward))")
-    return launches, results, profiles, calls
+    return launches, results, profiles, calls, ctx
 
 
 def record_calls(run, module, attr: str) -> dict:
@@ -1072,6 +1115,22 @@ def phase_recorded_timing(tag: str, calls: dict, profiles: dict, kernels, agains
     return rows
 
 
+def device_events(prof) -> list:
+    """A profiler's device events with a duration: kernels and copies."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_us(events) -> float:
+    """The length of the union of the events' time ranges."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
 def profile_clip(run, mode: str, smi: str, names) -> dict:
     """One clip under torch.profiler: device time by kernel, the share of
     the port's kernels `names` (with their PROLOGUES), and the device's
@@ -1102,24 +1161,18 @@ def profile_clip(run, mode: str, smi: str, names) -> dict:
     finally:
         for k in sized:
             setattr(SIZED[k], k, wrappers[k])
-    spans, by_name, n_by_name = [], {}, {}
+    events, by_name, n_by_name = device_events(prof), {}, {}
     launches = {k: [] for k in sized}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
-                and not getattr(e, "is_user_annotation", False)):  # kernels and copies
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
-            for k in sized:
-                if f"{k}_kernel" in e.name:
-                    launches[k].append((e.time_range.start, e.time_range.elapsed_us()))
-    if not spans:
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
+        for k in sized:
+            if f"{k}_kernel" in e.name:
+                launches[k].append((e.time_range.start, e.time_range.elapsed_us()))
+    if not events:
         print(f"[profile] {mode}: the profiler recorded no device events (not measured)")
         return {}
-    busy, end = 0.0, -math.inf
-    for a, b in sorted(spans):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
+    busy = busy_us(events)
     total = sum(by_name.values())
     k_us = {k: sum(v for n, v in by_name.items()
                    if any(p in n for p in (f"{k}_kernel", *PROLOGUES.get(k, ()))))
@@ -1318,6 +1371,9 @@ def phase_surface(smi: str, gen: torch.Generator, lq: np.ndarray, duf_lq: np.nda
     d16 = float(np.abs(srs["bf16-windows"] - srs["bf16-seq"]).max())
     print(f"[surface] 8a max |windows - seq|: fp32 {d32:.3e} (limit 1e-4), bf16 {d16:.3e}")
     check(d32 <= 1e-4, f"8a: fp32 window-batched and eval.seq differ by {d32}")
+    # 12c tiles 8a's fp32 path on 8a's clip (popped by main before the JSON).
+    out["_8a"] = dict(lq=reds_lq, state=copy.deepcopy(models["fp32"].netG.state_dict()),
+                      sr=srs["fp32-windows"])
     del models, srs
     torch.cuda.empty_cache()
 
@@ -2573,6 +2629,455 @@ def phase_meta2(smi: str, gen: torch.Generator, vimeo: str, est: str, root: str)
         torch.cuda.empty_cache()
     return out, rows, launches
 
+# --------------------------------------------------------------- phase 12
+# Tiled inference (eval/tiled.py), JAX's schedule: every tile of a call's
+# windows in one batch. 12a: test_DynaVSR_Vid4.yml's EDVR-M x4 + MFDN through
+# run_clip on a 7-frame smooth clip at LR 540x960 (-> 2160x3840), whole
+# frame and tiled 256 / overlap 32 (3 x 5 = 15 tiles a frame). 12b: DUF-16L
+# at 144x176, tile 64 / overlap 12, at least its receptive-field radius: the
+# tiles are exact. 12c: cli/test.py's path (create_model -> make_infer_fn)
+# with eval.tile 128 / overlap 32 on 8a's clip.
+BIG_T, BIG_H, BIG_W = 7, 540, 960
+BIG_TILE, BIG_OVERLAP = 256, 32
+DUF_TILE, DUF_OVERLAP = 64, 12
+EVAL_TILE, EVAL_OVERLAP = 128, 32
+
+
+def k1_vs_plain(calls: dict, what: str, chunk: int = 15) -> list:
+    """Every kind of K1 call recorded by record_dcn_calls on a forward
+    (fp32, no gradient), held against the plain DCN at phase 3's fp32
+    tolerance (1e-4 of the plain result's largest value), both timed.
+    Frames are independent, so the plain version runs `chunk` frames at a
+    time: its columns for a 75-frame 256^2 call would be an 11 GB
+    temporary."""
+    rows = []
+    for label, call in sorted(calls.items()):
+        x, offset, mask, weight, bias = call["args"]
+        gd = call["gd"]
+
+        def plain():
+            return torch.cat([deform_conv2d_ref(x[s: s + chunk], offset[s: s + chunk],
+                                                mask[s: s + chunk], weight, bias,
+                                                deformable_groups=gd)
+                              for s in range(0, x.shape[0], chunk)])
+
+        with torch.no_grad():
+            out, ref = dcn.dcn_fwd(x, offset, mask, weight, bias, gd), plain()
+            ms = cuda_ms(lambda: dcn.dcn_fwd(x, offset, mask, weight, bias, gd), reps=5)
+            plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        err, tol = float((out - ref).abs().max()), 1e-4 * float(ref.abs().max())
+        bound_ms, bound_by, _, _ = dcn_bound("dcn_fwd", tuple(x.shape), gd, x.dtype)
+        print(f"[tiles] {what}: K1 on {tuple(x.shape)} Gd {gd} ({call['count']} a forward) vs "
+              f"plain DCN: max|err| {err:.3e} (tol {tol:.3e}); {ms:.3f} ms a call, plain "
+              f"{plain_ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by})")
+        check(label.startswith("infer"), f"{what}: {label} is not a forward call")
+        check(err <= tol, f"{what}: K1 {label} differs from the plain DCN by {err} > {tol}")
+        rows.append(dict(name="dcn_fwd", label=label, dims=list(x.shape), count=call["count"],
+                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        del out, ref
+    return rows
+
+
+# (recorder, against) of each op that a tiled forward or a stream runs:
+# recorder(run) -> that op's calls during run(), by kind (record_dcn_calls,
+# record_calls); against(label, rec) -> the rows of its kernels held against
+# the plain op at phase 3's tolerances, and timed.
+DCN_PATH = (record_dcn_calls,
+            lambda label, rec: against_plain(label, *rec["args"], rec.get("cot"), rec["gd"],
+                                             timed=True))
+WARP_PATH = (lambda run: record_calls(run, tof_module, "warp_nchw"),
+             lambda label, rec: warp_against_plain(label, *rec["args"], rec.get("cot"),
+                                                   need_x=False, timed=True))
+DUF_PATH = (lambda run: record_calls(run, duf_module, "dynamic_upsampling_filter"),
+            lambda label, rec: duf_against_plain(label, *rec["args"], rec.get("cot"),
+                                                 need_x=False, timed=True))
+
+
+def calls_vs_plain(what: str, calls: dict, against) -> list:
+    """Every kind of call in `calls` held against the plain op by
+    `against(label, rec)` (raises if one disagrees) and timed; each row
+    tagged with `what` and the kind's count in the recorded run."""
+    rows = []
+    for label, rec in sorted(calls.items()):
+        had_bwd = rec["bwd"] > 0 if "bwd" in rec else label.startswith("adapt")
+        check(not had_bwd or rec.get("cot") is not None, f"{what} {label}: no gradient recorded")
+        for row in against(label, rec):
+            row.update(run=what, count=rec["count"])
+            rows.append(row)
+    return rows
+
+
+def frame_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of b against a over [0, 1] frames (both clipped), in dB."""
+    mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2, dtype=np.float64))
+    return math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def phase_tiles(smi: str, gen: torch.Generator, duf: dict, reds: dict) -> dict:
+    out = {}
+    # 12a: EDVR-M at 540x960 LR, whole frame vs tiles.
+    lq, _ = synthetic_clip(gen, BIG_T, BIG_H, BIG_W)
+    vsr = define_G({"network_G": EDVR_M})
+    init_weights(vsr, gen)
+    est = build_estimator({"nf": MFDN_NF}, SCALE, EDVR_M["nframes"])
+    init_weights(est, gen)
+    nf, tile = EDVR_M["nframes"], (BIG_TILE, BIG_TILE)
+    whole_apply = make_model_apply("EDVR", SCALE)
+    tiled_apply = make_tiled_apply(whole_apply, tile, BIG_OVERLAP, SCALE)
+    all_win = all_windows(BIG_T, nf, "reflection")
+    srs = {}
+    for label, chunk, tiled in (("whole, chunk 1", 1, None), ("tiled, chunk 1", 1, tile),
+                                ("tiled, chunk 2", 2, tile)):
+        cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=chunk)
+        reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sr, res = run_clip(vsr, est, lq, None, cfg, seq=False, n_frames=nf, padding="reflection",
+                           n_adapt=BIG_T, tile=tiled, tile_overlap=BIG_OVERLAP)
+        secs = time.perf_counter() - t0  # run_clip returns host arrays: synchronised
+        peak, counts = torch.cuda.max_memory_allocated(), all_counts()
+        losses = res["adapt_losses"]
+        check(sr.shape == (BIG_T, BIG_H * SCALE, BIG_W * SCALE, 3) and bool(np.isfinite(sr).all()),
+              f"12a {label}: SR")
+        check(len(losses) == 5 and all(math.isfinite(v) for v in losses), f"12a {label}: {losses}")
+        # K1: 5 adaptation steps x 4 DCNs, then 4 a forward of `chunk` windows.
+        expect = {"dcn_fwd": 4 * (5 + -(-BIG_T // chunk)), "dcn_bwd_data": 20,
+                  "dcn_bwd_weight": 20}
+        check_only(counts, expect, f"12a {label}")
+        srs[label] = sr
+        # run_clip's peak is the estimator's (MFDN on 7 full-size windows):
+        # the inference forward's own, one chunk of windows, is measured
+        # apart, above what is held, with its time (the card synchronised).
+        windows = torch.as_tensor(lq[all_win[:chunk]], device="cuda")
+        fwd = tiled_apply if tiled else whole_apply
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(vsr, windows)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        fwd_peak = torch.cuda.max_memory_allocated() - held
+        del windows
+        out[f"12a {label}"] = dict(secs=secs, fps=BIG_T / secs, peak=peak, counts=counts,
+                                   losses=losses, forward_s_per_frame=fwd_s / chunk,
+                                   forward_peak=fwd_peak)
+        print(f"[tiles] 12a EDVR-M x4 LR {BIG_H}x{BIG_W} -> {BIG_H * SCALE}x{BIG_W * SCALE}, "
+              f"{label:15s} {secs:.3f} s/clip  {BIG_T / secs:.3f} frames/s  peak "
+              f"{peak / 2**30:.2f} GiB; one forward of {chunk} window(s) alone: "
+              f"{fwd_s / chunk:.3f} s a frame, peak {fwd_peak / 2**30:.2f} GiB above the "
+              f"{held / 2**30:.2f} held  launches {({k: v for k, v in counts.items() if v})}  "
+              f"[{smi}]")
+    whole = srs["whole, chunk 1"]
+    for label in ("tiled, chunk 1", "tiled, chunk 2"):
+        d = float(np.abs(srs[label] - whole).max())
+        psnr = frame_psnr(whole, srs[label])
+        check(math.isfinite(d), f"12a {label}: |tiled - whole| {d}")
+        out[f"12a {label}"].update(max_abs_vs_whole=d, psnr_vs_whole=psnr)
+        print(f"[tiles] 12a {label}: max |tiled - whole| {d:.3e}, PSNR vs whole {psnr:.2f} dB "
+              "(EDVR's offsets are unbounded: not tile-exact; reported)")
+    d12 = float(np.abs(srs["tiled, chunk 1"] - srs["tiled, chunk 2"]).max())
+    print(f"[tiles] 12a max |chunk 1 - chunk 2| tiled: {d12:.3e}")
+    del srs, whole
+    win = torch.as_tensor(lq[all_win[:1]], device="cuda")
+    n_tiles = len(tile_plan(BIG_H, BIG_TILE, BIG_OVERLAP)[0]) * len(
+        tile_plan(BIG_W, BIG_TILE, BIG_OVERLAP)[0])
+    with torch.no_grad():
+        calls = record_dcn_calls(lambda: tiled_apply(vsr, win))
+    check(dcn_label("infer", (n_tiles * nf, 64, BIG_TILE, BIG_TILE)) in calls,
+          f"12a: no K1 call on the tile batch: {sorted(calls)}")
+    out["12a K1 vs plain"] = k1_vs_plain(calls, "12a tile batch")
+    del calls, vsr, est, win
+    torch.cuda.empty_cache()
+
+    # 12b: DUF-16L, tiles exact.
+    apply = make_model_apply("DUF", SCALE)
+    windows = torch.as_tensor(duf["lq"][all_windows(CLIP_T, DUF_FRAMES, "new_info")[:INFER_CHUNK]],
+                              device="cuda")
+    tiled_duf = make_tiled_apply(apply, DUF_TILE, DUF_OVERLAP, SCALE)
+    with torch.no_grad():
+        whole = apply(duf["net"], windows)
+        reset_all_counts()
+        tiled = tiled_duf(duf["net"], windows)
+        counts = all_counts()
+        calls = record_calls(lambda: tiled_duf(duf["net"], windows), duf_module,
+                             "dynamic_upsampling_filter")
+    d = float((tiled - whole).abs().max())
+    out["12b"] = dict(max_abs_vs_whole=d, counts=counts,
+                      calls=calls_vs_plain("12b tile batch", calls, DUF_PATH[1]))
+    print(f"[tiles] 12b DUF-16L {tuple(windows.shape)} tile {DUF_TILE} overlap {DUF_OVERLAP}: "
+          f"max |tiled - whole| {d:.3e} (limit 1e-4)  launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    check(d <= 1e-4, f"12b: tiled DUF differs from the whole frame by {d}")
+    check_only(counts, {"duf_fwd": 1}, "12b")
+    del whole, tiled, windows
+
+    # 12c: plain eval tiled, through create_model's forward, on 8a's clip.
+    opt = {"scale": SCALE, "network_G": EDVR_REDS4, "path": {},
+           "eval": {"infer_chunk": EVAL_CHUNK, "tile": EVAL_TILE, "tile_overlap": EVAL_OVERLAP}}
+    model = create_model(opt)
+    model.netG.load_state_dict(reds["state"])
+    check(model.make_seq_infer_fn() is None, "12c: a tiled sequence mode")
+    serve_set = MemoryTestSet({"000": (reds["lq"], None)}, EDVR_REDS4["nframes"], "new_info")
+    outs, secs = [], []
+    with torch.no_grad():  # warm-up at the tile shapes, each kind of K1 call recorded
+        calls = record_dcn_calls(lambda: evaluate_dataset(
+            model.make_infer_fn(), serve_set, n_frames=5, padding="new_info", chunk=EVAL_CHUNK))
+    reset_all_counts()
+    evaluate_dataset(recorded(model.make_infer_fn(), outs, secs), serve_set, n_frames=5,
+                     padding="new_info", chunk=EVAL_CHUNK)
+    counts, sr = all_counts(), np.concatenate(outs)
+    check_only(counts, {"dcn_fwd": -(-REDS_T // EVAL_CHUNK) * 4}, "12c")
+    d = float(np.abs(sr - reds["sr"]).max())
+    check(sr.shape == reds["sr"].shape and math.isfinite(d), f"12c: |tiled - 8a| {d}")
+    out["12c"] = dict(max_abs_vs_8a=d, psnr_vs_8a=frame_psnr(reds["sr"], sr),
+                      infer_fps=REDS_T / sum(secs), counts=counts,
+                      calls=k1_vs_plain(calls, "12c tile batch"))
+    print(f"[tiles] 12c create_model eval.tile {EVAL_TILE} overlap {EVAL_OVERLAP} on 8a's clip: "
+          f"max |tiled - 8a| {d:.3e}, PSNR vs 8a {out['12c']['psnr_vs_8a']:.2f} dB (reported), "
+          f"{REDS_T / sum(secs):.3f} frames/s in the forwards  launches "
+          f"{({k: v for k, v in counts.items() if v})}; make_seq_infer_fn None  [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 13
+# Online serving (eval/streaming.py) of phase 4-6's nets on their clips:
+# 13a StreamingSR EDVR-M + MFDN adapter (K 8, 5 Adam steps, lr 1e-6) fp32
+# and bf16; 13b WindowStreamSR TOF / DUF-16L with the train_ema adapter;
+# 13c MultiStreamSR B = 4 EDVR-M fp32, shared and adapted in G = 1 / 2 / 4
+# groups, on four clips from other seeds.
+STREAM_B, STREAM_GROUPS = 4, (1, 2, 4)
+
+
+def drive(stream, frames, profile_dir=None, profile_at=None, record=None) -> tuple:
+    """Push `frames` through `stream`, the card synchronised before and
+    after each push, then flush. Returns the emitted SR on the host (in
+    frame order), one row per push (host seconds until push() returned,
+    seconds until the card finished, frames emitted, launches), for push
+    `profile_at`, run under utils/observability.profile_trace into
+    profile_dir and left out of the rows, the device's busy / idle share,
+    and, with record = (recorder, pushes), an op's calls during each of
+    those pushes, by push and kind (a pass that records is not a measured
+    one: its rows time the recording too)."""
+    got, rows, prof_row, calls = [], [], None, {}
+    for i, f in enumerate(frames):
+        before = all_counts()
+        torch.cuda.synchronize()
+        if i == profile_at:
+            with profile_trace(profile_dir) as prof:
+                t0 = time.perf_counter()
+                emitted = stream.push(f)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            prof_row = device_share(prof, wall * 1e6)
+            print(f"[stream]   push {i} under profile_trace: {prof_row}")
+        else:
+            t0 = time.perf_counter()
+            if record and i in record[1]:
+                box = []
+                calls[i] = record[0](lambda: box.append(stream.push(f)))
+                emitted = box[0]
+            else:
+                emitted = stream.push(f)
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = {k: v - before[k] for k, v in all_counts().items() if v - before[k]}
+            rows.append((t_host, time.perf_counter() - t0, len(emitted), counts))
+        got.extend(emitted)
+    got.extend(stream.flush())
+    check([i for i, _ in got] == list(range(len(frames))),
+          f"the stream emitted {[i for i, _ in got]}")
+    dim = 0 if got[0][1].dim() == 3 else 1  # MultiStreamSR: (B, T, ...)
+    return torch.stack([s for _, s in got], dim=dim).cpu().numpy(), rows, prof_row, calls
+
+
+def stream_stats(rows, warm: int) -> dict:
+    """The warm-up push (index `warm`), and medians over the later pushes
+    that emitted one frame (a MultiStreamSR push: one frame a stream)."""
+    after = [r for r in rows[warm + 1:] if r[2] == 1]
+    check(len(after) >= 3, f"only {len(after)} steady pushes")
+    return dict(warmup_s=rows[warm][1], warmup_launches=rows[warm][3],
+                steady_ms=float(np.median([r[1] for r in after])) * 1e3,
+                host_us=float(np.median([r[0] for r in after])) * 1e6,
+                steady_launches=after[0][3], steady_pushes=len(after),
+                every_steady_push_same=all(r[3] == after[0][3] for r in after))
+
+
+def device_share(prof, wall_us: float) -> dict:
+    """The device's busy / idle share of `wall_us` and its top operations,
+    from a profiler's device events."""
+    events, by_name = device_events(prof), {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not events:
+        return dict(wall_ms=wall_us / 1e3, note="no device events recorded (not measured)")
+    busy = busy_us(events)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    kernels = {k: round(sum(us for n, us in by_name.items()
+                            if any(p in n for p in (f"{k}_kernel", *PROLOGUES.get(k, ()))))
+                        / 1e3, 4)
+               for k in (*DCN_KERNELS, *WARP_KERNELS, *DUF_KERNELS)}
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle_share=1 - busy / wall_us,
+                kernel_ms={k: v for k, v in kernels.items() if v},
+                top=[(n[:80], round(us / 1e3, 4)) for n, us in top])
+
+
+def windows_sr(net, frames: np.ndarray, n: int, padding: str) -> np.ndarray:
+    """The offline window-batched forward over every window of a clip,
+    INFER_CHUNK windows a call."""
+    win = torch.as_tensor(frames[all_windows(len(frames), n, padding)], device="cuda")
+    apply = make_model_apply(net.arch, SCALE)
+    with torch.no_grad():
+        return chunked_apply(lambda w: apply(net, w), win, INFER_CHUNK).cpu().numpy()
+
+
+def pushes_vs_plain(what: str, by_push: dict, warm: int, against) -> dict:
+    """The calls that drive recorded in the warm-up push (`warm`) and in a
+    steady push (`warm` + 2), each kind held against the plain op and
+    timed; the steady push's time in each kernel and in its plain version,
+    a kind's timed call times its count in that push."""
+    check(sorted(by_push) == [warm, warm + 2], f"{what}: recorded pushes {sorted(by_push)}")
+    out = dict(warmup=calls_vs_plain(f"{what} warm-up push", by_push[warm], against),
+               steady=calls_vs_plain(f"{what} steady push", by_push[warm + 2], against))
+    per_push = {}
+    for r in out["steady"]:
+        t = per_push.setdefault(r["name"], dict(launches=0, ms=0.0, plain_ms=0.0))
+        t["launches"] += r["count"]
+        t["ms"] += r["ms"] * r["count"]
+        t["plain_ms"] += r["plain_ms"] * r["count"]
+    out["steady_push"] = per_push
+    print(f"[stream] {what}: every kind of kernel call of the warm-up push and of a steady "
+          f"push agrees with the plain op; a steady push in the kernels (timed calls x count) "
+          f"{ {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in per_push.items()} }")
+    return out
+
+
+def phase_stream(smi: str, gen: torch.Generator, lq: np.ndarray, duf_lq: np.ndarray,
+                 edvr: dict, tof: dict, duf: dict, trace_dir: str) -> dict:
+    """Each streamer twice: a pass that records the op's calls of the
+    warm-up push and of a steady push (held against the plain op), then
+    the measured pass. A fp32 stream must equal its reference within
+    1e-4, and be nearer to it than the unadapted net's output is (the
+    adaptation's move, reported beside)."""
+    out, nf = {}, EDVR_M["nframes"]
+    cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
+    edvr_adapter = make_streaming_adapter(cfg, edvr["est"],
+                                          apply_fn=make_model_apply("EDVR", SCALE))
+
+    def served(what, make, frames, path, ref, unadapted, warm=None, profile_after=None):
+        """make() -> a stream; the recording pass, then the measured one,
+        whose SR is held against `ref` (fp32: within 1e-4, and nearer than
+        `unadapted`)."""
+        for measured in (False, True):
+            stream = make()
+            w = stream._warm_need - 1 if warm is None else warm
+            torch.cuda.reset_peak_memory_stats()
+            sr, rows, prof, by_push = drive(
+                stream, frames, trace_dir,
+                w + profile_after if measured and profile_after else None,
+                record=None if measured else (path[0], (w, w + 2)))
+            if not measured:
+                calls = pushes_vs_plain(what, by_push, w, path[1])
+        stats = stream_stats(rows, w)
+        d = float(np.abs(sr - ref).max())
+        move = float(np.abs(ref - unadapted).max())
+        stats.update(peak=torch.cuda.max_memory_allocated(), max_abs_vs_reference=d,
+                     adaptation_move=move, profile=prof, calls=calls)
+        return stats, d, move
+
+    # 13a: one EDVR stream, fp32 and bf16, against phase 4's window-batched
+    # run_clip; the recording pass also warms up (cuDNN plans at B = 1).
+    for dt_name, net in (("fp32", edvr["vsr32"]), ("bf16", edvr["vsr16"])):
+        stats, d, move = served(
+            f"13a {dt_name}", lambda: StreamingSR(net, n_frames=nf, adapter=edvr_adapter,
+                                                  adapt_windows=N_WINDOWS),
+            lq, DCN_PATH, edvr["sr"][dt_name], windows_sr(net, lq, nf, "reflection"),
+            profile_after=3)
+        out[f"13a {dt_name}"] = stats
+        check(stats["steady_launches"] == {"dcn_fwd": 4} and stats["every_steady_push_same"],
+              f"13a {dt_name}: a steady push launched {stats['steady_launches']}")
+        wl = stats["warmup_launches"]
+        check(wl.get("dcn_bwd_data") == 20 and wl.get("dcn_bwd_weight") == 20,
+              f"13a {dt_name}: the warm-up launched {wl}")
+        gap = (f"(limit 1e-4)" if dt_name == "fp32"
+               else f"(phase 4's bf16 windows vs seq: {edvr['d16']:.3e})")
+        print(f"[stream] 13a StreamingSR EDVR-M {dt_name}: warm-up push {stats['warmup_s']:.3f} s "
+              f"(K {N_WINDOWS}, launches {wl}), steady {stats['steady_ms']:.3f} ms/frame, host "
+              f"{stats['host_us']:.1f} us a push ({stats['steady_pushes']} pushes; launches "
+              f"{stats['steady_launches']}), peak {stats['peak'] / 2**30:.2f} GiB; max |stream - "
+              f"run_clip| {d:.3e} {gap}; the adaptation moved run_clip by {move:.3e}  [{smi}]")
+        if dt_name == "fp32":
+            check(d <= 1e-4 and d < move,
+                  f"13a: the fp32 stream differs from run_clip by {d} (adaptation's move {move})")
+
+    # 13b: the window streamers on phase 5's and 6's clips, fp32.
+    for tag, ctx, frames, n, pad, path in (("TOF", tof, lq, TOF_FRAMES, "reflection", WARP_PATH),
+                                           ("DUF", duf, duf_lq, DUF_FRAMES, "new_info", DUF_PATH)):
+        adapter = make_streaming_adapter(cfg, ctx["est"], apply_fn=make_model_apply(tag, SCALE),
+                                         mutable_apply_fn=make_mutable_model_apply(tag, SCALE))
+        stats, d, move = served(
+            f"13b {tag}", lambda: WindowStreamSR(ctx["net"], n_frames=n, padding=pad,
+                                                 adapter=adapter, adapt_windows=N_WINDOWS),
+            frames, path, ctx["sr"], windows_sr(ctx["net"], frames, n, pad), profile_after=2)
+        out[f"13b {tag}"] = stats
+        fwd = "warp_fwd" if tag == "TOF" else "duf_fwd"
+        per_push = (n - 1) * (SPY_LEVELS + 1) if tag == "TOF" else 1
+        check(stats["steady_launches"] == {fwd: per_push} and stats["every_steady_push_same"],
+              f"13b {tag}: a steady push launched {stats['steady_launches']}")
+        print(f"[stream] 13b WindowStreamSR {tag} fp32: warm-up push {stats['warmup_s']:.3f} s "
+              f"(launches {stats['warmup_launches']}), steady {stats['steady_ms']:.3f} ms/frame, "
+              f"host {stats['host_us']:.1f} us a push (launches {stats['steady_launches']}), peak "
+              f"{stats['peak'] / 2**30:.2f} GiB; max |stream - run_clip| {d:.3e} (limit 1e-4); "
+              f"the adaptation moved run_clip by {move:.3e}  [{smi}]")
+        check(d <= 1e-4 and d < move,
+              f"13b {tag}: the stream differs from run_clip by {d} (adaptation's move {move})")
+
+    # 13c: B = 4 EDVR-M streams in lockstep, fp32, on four clips of other
+    # seeds: shared, then adapted in G groups, each stream held against its
+    # reference construction (the group's pooled first-K windows through the
+    # one-stream adapter, then the offline window-batched forward).
+    net = edvr["vsr32"]
+    clips = np.stack([synthetic_clip(torch.Generator(device="cuda").manual_seed(SEED + 1 + s))[0]
+                      for s in range(STREAM_B)])  # (B, T, h, w, 3)
+    first_k = [index_generation(j, 1 << 30, nf, "reflection") for j in range(N_WINDOWS)]
+    unadapted = np.stack([windows_sr(net, clips[s], nf, "reflection") for s in range(STREAM_B)])
+    for groups in (0, *STREAM_GROUPS):
+        label = "shared" if groups == 0 else f"G={groups}"
+        ref = unadapted.copy()
+        per = STREAM_B // (groups or STREAM_B)
+        for g0 in range(0, STREAM_B, per) if groups else ():
+            pooled = torch.as_tensor(np.concatenate(
+                [clips[s][np.asarray(first_k)] for s in range(g0, g0 + per)]), device="cuda")
+            ref_net, _ = edvr_adapter(net, pooled)
+            for s in range(g0, g0 + per):
+                ref[s] = windows_sr(ref_net, clips[s], nf, "reflection")
+        # Shared streams have no warm-up: "warm-up" is their first emitting push.
+        stats, worst, move = served(
+            f"13c {label}", lambda: MultiStreamSR(
+                net, n_streams=STREAM_B, n_frames=nf, n_groups=groups or None,
+                adapt_windows=N_WINDOWS if groups else 0,
+                adapter=make_streaming_adapter(
+                    cfg, edvr["est"], apply_fn=make_model_apply("EDVR", SCALE),
+                    batched=True) if groups else None),
+            clips.transpose(1, 0, 2, 3, 4), DCN_PATH, ref, unadapted,
+            warm=None if groups else nf // 2)
+        stats.update(ms_per_frame_per_stream=stats["steady_ms"] / STREAM_B)
+        out[f"13c {label}"] = stats
+        print(f"[stream] 13c MultiStreamSR B={STREAM_B} EDVR-M fp32 {label:6s}: steady "
+              f"{stats['steady_ms']:.3f} ms a push = {stats['ms_per_frame_per_stream']:.3f} "
+              f"ms/frame/stream, host {stats['host_us']:.1f} us a push (launches "
+              f"{stats['steady_launches']}), warm-up push {stats['warmup_s']:.3f} s, peak "
+              f"{stats['peak'] / 2**30:.2f} GiB; max |stream - reference| {worst:.3e} (limit "
+              f"1e-4); the adaptation moved the reference by {move:.3e}  [{smi}]")
+        check(worst <= 1e-4 and (not groups or worst < move),
+              f"13c {label}: a stream differs from its reference by {worst} (move {move})")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2583,15 +3088,15 @@ def main() -> None:
     phase_kernels()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     lq, gt = synthetic_clip(gen)
-    edvr_launches, main_results, profiles, calls = phase_main(smi, gen, lq, gt)
-    tof_launches, tof_results, tof_profiles, warp_calls = phase_bn_net(
+    edvr_launches, main_results, profiles, calls, edvr_ctx = phase_main(smi, gen, lq, gt)
+    tof_launches, tof_results, tof_profiles, warp_calls, tof_ctx = phase_bn_net(
         "tof", TOF_G, TOF_FRAMES, WARP_KERNELS, warp_launches_per_clip,
         (tof_module, "warp_nchw", grid_sample_ref.warp_nchw), smi, gen, lq, gt,
         padding="reflection", crop=0)
     with torch.no_grad():  # DUF's blur-matched LR of the same HR clip
         duf_lq = duf_downsample(torch.as_tensor(gt, device="cuda"), SCALE).cpu().numpy()
     check(duf_lq.shape == lq.shape, f"duf_downsample gave {duf_lq.shape}, not {lq.shape}")
-    duf_launches, duf_results, duf_profiles, duf_calls = phase_bn_net(
+    duf_launches, duf_results, duf_profiles, duf_calls, duf_ctx = phase_bn_net(
         "duf", DUF_G, DUF_FRAMES, DUF_KERNELS, duf_launches_per_clip,
         (duf_module, "dynamic_upsampling_filter", dynamic_upsampling_filter_ref), smi, gen,
         duf_lq, gt, padding="new_info", crop=DUF_CROP)
@@ -2603,6 +3108,7 @@ def main() -> None:
     t_surface = time.perf_counter()
     surface = phase_surface(smi, gen, lq, duf_lq)
     surface["seconds"] = time.perf_counter() - t_surface
+    reds_8a = surface.pop("_8a")
     print(f"[surface] phase 8 took {surface['seconds']:.1f} s")
     import tempfile
 
@@ -2624,6 +3130,15 @@ def main() -> None:
                                                         meta["10a"]["final"], root)
         meta2["seconds"] = time.perf_counter() - t_meta2
         print(f"[meta2] phase 11 took {meta2['seconds']:.1f} s")
+        t_tiles = time.perf_counter()
+        tiles = phase_tiles(smi, gen, dict(duf_ctx, lq=duf_lq), reds_8a)
+        tiles["seconds"] = time.perf_counter() - t_tiles
+        print(f"[tiles] phase 12 took {tiles['seconds']:.1f} s")
+        t_stream = time.perf_counter()
+        stream = phase_stream(smi, gen, lq, duf_lq, edvr_ctx, tof_ctx, duf_ctx,
+                              osp.join(root, "trace"))
+        stream["seconds"] = time.perf_counter() - t_stream
+        print(f"[stream] phase 13 took {stream['seconds']:.1f} s")
     rows += train_rows + meta_rows + meta2_rows
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
@@ -2663,12 +3178,14 @@ def main() -> None:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
                        "duf": duf_results, "surface": surface, "train": training,
-                       "meta": meta, "meta2": meta2,
+                       "meta": meta, "meta2": meta2, "tiles": tiles, "stream": stream,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print("[train] " + json.dumps(training))
     print("[meta] " + json.dumps(meta, default=str))
     print("[meta2] " + json.dumps(meta2, default=str))
+    print("[tiles] " + json.dumps(tiles, default=str))
+    print("[stream] " + json.dumps(stream, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@ Builds the config's net (models/video_base_model.create_model), and for
 each dataset block (data/loader.create_dataset: Vid4 / REDS4 whole clips,
 or Vimeo90K-T's centre frames) super-resolves every frame's window and
 scores it. `eval.seq: true` runs EDVR in sequence mode; `eval.infer_chunk`
-(default 8) bounds the windows a forward takes.
+(default 8) bounds the windows a forward takes; `eval.tile` (an int or
+[th, tw]) with `eval.tile_overlap` (default 32) runs each forward as
+overlapping spatial tiles (eval/tiled.py).
 
     python -m dynavsr_tpu_torch.cli.test -opt configs/test/test_EDVR_M_REDS4.yml
 """
@@ -43,8 +45,8 @@ def main(argv=None) -> dict:
     ev = opt.get("eval") or {}
     seq_fn = model.make_seq_infer_fn() if ev.get("seq") else None
     if ev.get("seq") and seq_fn is None:
-        logger.warning("eval.seq requested but %s has no pyramid-split forward: using the "
-                       "window-batched path.", model.netG.arch)
+        logger.warning("eval.seq requested but %s has no pyramid-split forward, or eval.tile "
+                       "is set: using the window-batched path.", model.netG.arch)
     all_results = {}
     for name, dataset_opt in (opt["datasets"] or {}).items():
         test_set = create_dataset(dataset_opt)

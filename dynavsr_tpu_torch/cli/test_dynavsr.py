@@ -5,9 +5,12 @@ or bf16) turns the adaptation windows into SLR windows, the VSR net
 (EDVR, TOF or DUF_16L/28L/52L, `network_G.which_model_G`) takes k
 adaptation steps on (SLR window -> LR centre), then slides over the clip
 (window-batched, or for EDVR sequence mode with `adapt.seq: true`), and the
-frames are scored. DUF expects blur-matched LR (data/degradations.
-duf_downsample) and 7 frames a window, and its configs score with
-`eval.crop_border: 8`.
+frames are scored. `eval.tile` (an int or [th, tw]) with `eval.tile_overlap`
+(default 32) runs the inference windows as overlapping spatial tiles
+(eval/tiled.py; the adaptation's SLR windows, smaller than a tile, pass
+through whole, as in JAX), and `adapt.seq` is off then.
+DUF expects blur-matched LR (data/degradations.duf_downsample) and 7
+frames a window, and its configs score with `eval.crop_border: 8`.
 
     python -m dynavsr_tpu_torch.cli.test_dynavsr -opt configs/test/test_DynaVSR_Vid4.yml
 """
@@ -32,6 +35,7 @@ from dynavsr_tpu_torch.data.loader import create_dataset
 from dynavsr_tpu_torch.data.windows import all_windows
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import score_frames
+from dynavsr_tpu_torch.eval.tiled import make_tiled_apply
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import (
     arch_mod,
@@ -48,14 +52,20 @@ logger = logging.getLogger("dynavsr_tpu_torch")
 def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfig, *,
              seq: bool, n_frames: int, padding: str, n_adapt: int, scale: int = 4,
              ycbcr: bool = True, crop_border: int = 0,
-             save_dir: Optional[str] = None, device=None) -> Tuple[np.ndarray, dict]:
+             save_dir: Optional[str] = None, device=None, tile=None,
+             tile_overlap: Optional[int] = None) -> Tuple[np.ndarray, dict]:
     """Adapt `vsr` (a copy of it) to one clip and super-resolve the clip.
 
     lq (T, h, w, 3) / gt (T, H, W, 3) float in [0, 1]. vsr's class names
     its architecture (`vsr.arch`: EDVR, TOF or DUF) and so its input convention
     (models/padding.py). `seq` asks for sequence-mode inference, which only
     EDVR has: another net falls back to the window-batched path with a
-    warning, as the JAX CLI does. The work runs on `device` (default: cuda;
+    warning, as the JAX CLI does. `tile` (an int or (th, tw)) runs the
+    window-batched forwards as overlapping tiles (`tile_overlap` pixels,
+    None for eval/tiled.TILE_OVERLAP):
+    the inference windows, while SLR windows that fit a tile pass through
+    and the train_ema forward is never tiled, as in JAX.
+    The work runs on `device` (default: cuda;
     see device.resolve_device), where vsr and est must already be
     (define_G / build_estimator with the same device). Returns (sr (T, H, W, 3), scores),
     with the per-step adaptation losses under scores['adapt_losses']."""
@@ -66,6 +76,7 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
             raise ValueError(f"{name} is on {on}, but the clip runs on {device}: "
                              f"build it with device={str(device)!r}")
     which = vsr.arch
+    seq = seq and not tile
     if seq and which != "EDVR":
         logger.warning("adapt.seq requested but which_model_G=%s has no pyramid-split "
                        "forward: using the window-batched path.", which)
@@ -73,6 +84,8 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
     t, h, w = lq.shape[:3]
     win = all_windows(t, n_frames, padding)
     apply = make_model_apply(which, scale)
+    if tile:
+        apply = make_tiled_apply(apply, tile, tile_overlap, scale)
     mutable = (make_mutable_model_apply(which, scale)
                if resolve_bn_mode(cfg.bn_mode, vsr) == "train_ema" else None)
     adapt_windows = torch.as_tensor(lq[win[: min(n_adapt, t)]], device=device)
@@ -134,9 +147,8 @@ def main(argv=None):
     logger.info(dict2str(opt))
     a = opt.get("adapt") or {}
     if a.get("clip_parallel"):
-        raise NotImplementedError("adapt.clip_parallel is not yet ported")
-    if (opt.get("eval") or {}).get("tile"):
-        raise NotImplementedError("eval.tile is not yet ported")
+        raise NotImplementedError("adapt.clip_parallel is not ported yet: it is the "
+                                  "multi-device slice (torch.distributed)")
 
     scale = opt.get("scale", 4)
     n_frames = (opt["network_G"] or {}).get("nframes", 5)
@@ -162,7 +174,8 @@ def main(argv=None):
                 ycbcr=bool(ev.get("ycbcr", True)),
                 crop_border=int(ev.get("crop_border") or 0),
                 save_dir=None if args.no_save_images else osp.join(
-                    opt["path"]["results_root"], clip), device=device)
+                    opt["path"]["results_root"], clip), device=device,
+                tile=ev.get("tile"), tile_overlap=ev.get("tile_overlap"))
             results[clip] = res
             if "psnr_avg" in res:
                 logger.info("Clip %s: PSNR %.4f SSIM %.4f (adapted, %d steps)",

@@ -26,7 +26,7 @@ Every `logger.save_checkpoint_freq` iterations, and at the end, it writes
 `training_state/<iter>.state`; `path.resume_state: .../<iter>.state`
 resumes from them on exactly the batches the run would have seen next.
 Scalars go to `<root>/tb_logger/<name>/metrics.jsonl`. Multi-process
-launchers (ROADMAP A.6) are not ported yet and raise.
+launchers (multi-device launch) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def main(argv=None) -> int:
     if args.launcher != "none":
         raise NotImplementedError(
             f"--launcher {args.launcher}: multi-process training (torch.distributed) is "
-            "not ported yet (ROADMAP A.6)")
+            "not ported yet (the multi-device launch slice)")
     from dynavsr_tpu_torch.config.options import parse
 
     device = resolve_device(args.device)

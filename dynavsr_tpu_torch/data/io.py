@@ -1,8 +1,10 @@
 """Frame IO — copy of dynavsr_tpu/data/io.py (image folders).
 
-`read_img` returns float32 RGB in [0, 1]. cv2 is imported inside the
-function that reads a file, so the package imports on a host without it.
-LMDB roots are read by data/lmdb_dataset.py.
+`read_img` returns float32 RGB in [0, 1]; `read_img_seq` stacks a clip;
+`get_image_paths` lists an image tree ('img') or an LMDB's keys ('lmdb',
+through data/lmdb_native.py). cv2 is imported inside the function that
+reads a file, so the package imports on a host without it. LMDB roots are
+read by data/lmdb_dataset.py.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["read_img", "read_img_u8", "to_float", "glob_clip_folders"]
+__all__ = ["read_img", "read_img_u8", "read_img_seq", "to_float", "get_image_paths",
+           "glob_clip_folders"]
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif")
 
@@ -42,6 +45,25 @@ def read_img_u8(path: str) -> np.ndarray:
     if img.shape[2] == 4:
         img = img[:, :, :3]
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def read_img_seq(paths: List[str]) -> np.ndarray:
+    """Stack a clip's frames -> (T, H, W, 3) float32 RGB."""
+    return np.stack([read_img(p) for p in paths], axis=0)
+
+
+def get_image_paths(data_type: str, dataroot: str) -> List[str]:
+    """Sorted frame paths under a folder tree ('img') or an LMDB's keys
+    without the '.meta' entries ('lmdb')."""
+    if data_type == "img":
+        return sorted(osp.join(root, f) for root, _dirs, files in os.walk(dataroot)
+                      for f in files if f.lower().endswith(_IMG_EXTS))
+    if data_type == "lmdb":
+        from dynavsr_tpu_torch.data.lmdb_native import LmdbReader
+
+        with LmdbReader(dataroot) as r:
+            return sorted(k.decode() for k in r.keys() if not k.endswith(b".meta"))
+    raise ValueError(f"unknown data_type {data_type!r}")
 
 
 def glob_clip_folders(dataroot: str) -> Dict[str, List[str]]:

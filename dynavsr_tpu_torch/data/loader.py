@@ -5,7 +5,7 @@ does. create_dataloader returns a PrefetchLoader: shuffled batches of
 stacked numpy items, decoded ahead by a small thread pool (image decode and
 the numpy copies release the interpreter lock). One process reads the whole
 index stream (process index 0 of 1); sharding it over torch.distributed
-ranks is ROADMAP A.6.
+ranks belongs to the multi-device launch, not ported yet.
 """
 
 from __future__ import annotations

@@ -34,6 +34,7 @@ import torch
 
 from dynavsr_tpu_torch.adapt.adaptation import seq_forward
 from dynavsr_tpu_torch.device import resolve_device
+from dynavsr_tpu_torch.eval.tiled import make_tiled_apply
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
 from dynavsr_tpu_torch.train import checkpoint
@@ -81,8 +82,8 @@ class VideoBaseModel:
         self.opt = opt
         self.device = resolve_device(device)
         ev = opt.get("eval") or {}
-        if ev.get("tile"):
-            raise NotImplementedError("eval.tile is not ported yet (ROADMAP A.6)")
+        # eval.tile: an int or [th, tw]; eval.tile_overlap (eval/tiled.py).
+        self.tile, self.tile_overlap = ev.get("tile"), ev.get("tile_overlap")
         self.scale = opt.get("scale", 4)
         self.infer_chunk = int(ev.get("infer_chunk") or 8)
         self.netG = define_G(opt, self.device).eval()
@@ -180,8 +181,11 @@ class VideoBaseModel:
     def make_infer_fn(self) -> Callable[[np.ndarray], np.ndarray]:
         """(F, N, h, w, 3) windows -> (F, H, W, 3) SR, with the net's input
         convention (models/padding.make_model_apply: EDVR's mod-4 padding,
-        TOF's bicubic pre-upscale)."""
+        TOF's bicubic pre-upscale); with eval.tile, as overlapping tiles of
+        the frame (eval/tiled.make_tiled_apply), all tiles in one call."""
         apply = make_model_apply(self.netG.arch, self.scale)
+        if self.tile:
+            apply = make_tiled_apply(apply, self.tile, self.tile_overlap, self.scale)
 
         def infer(windows: np.ndarray) -> np.ndarray:
             with torch.no_grad(), self._eval_mode() as net:
@@ -196,8 +200,9 @@ class VideoBaseModel:
         the windows that hold it, `eval.infer_chunk` windows fused at a
         time (exact against the window path). The frames are reflect-padded
         to a multiple of 4 once, as the window path pads each window. None
-        for a net without a pyramid-split forward (TOF, DUF)."""
-        if self.netG.arch != "EDVR":
+        for a net without a pyramid-split forward (TOF, DUF), and under
+        eval.tile (the tiled forward takes window batches)."""
+        if self.netG.arch != "EDVR" or self.tile:
             return None
         mod = arch_mod("EDVR")
 
@@ -230,8 +235,8 @@ class MetaModel(VideoBaseModel):
     optimizer steps meta_variables(netG): the parameters and the BatchNorm
     running statistics (TOF, DUF), whose Adam moments the `.state` file
     keeps. Second order in bf16 through the DCN or the dynamic filter (an
-    EDVR or DUF net in bf16 with first_order false) raises (ROADMAP A.7)
-    rather than train to first order silently."""
+    EDVR or DUF net in bf16 with first_order false) raises (no bf16 second
+    order yet) rather than train to first order silently."""
 
     def __init__(self, opt: Mapping, device=None):
         super().__init__(opt, device)
@@ -245,12 +250,12 @@ class MetaModel(VideoBaseModel):
         if net.get("which_model_G") == "EDVR" and net.get("dtype") not in (None, "float32"):
             raise NotImplementedError(
                 f"meta-training EDVR in {net.get('dtype')}: the DCN's second-order kernels take "
-                "float32 (bf16 second order is ROADMAP A.7)")
+                "float32 (no bf16 second order yet)")
         if (self.netG.arch == "DUF" and net.get("dtype") not in (None, "float32")
                 and not self.meta_cfg.first_order):
             raise NotImplementedError(
                 f"second-order meta-training of DUF in {net.get('dtype')}: the dynamic filter's "
-                "second order takes float32 filters (bf16 second order is ROADMAP A.7)")
+                "second order takes float32 filters (no bf16 second order yet)")
         self._meta_step = None
 
     def _trained(self):

@@ -190,7 +190,7 @@ def _tangent_args(x, offset, mask, coff, gd: int, cout: int, name: str, **tensor
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"{name} takes float32 (the meta configs' dtype); a bf16 second order through the "
-            "DCN is ROADMAP A.7")
+            "DCN is not ported yet")
     x = x.contiguous(memory_format=torch.channels_last)
     coff = coff.contiguous()
     tensors = {k: v.contiguous() for k, v in tensors.items()}
@@ -337,8 +337,8 @@ class DcnBwdDataFunction(torch.autograd.Function):
         need, gd = ctx.needs_input_grad, ctx.gd
         cx, coff, cm = _cotangents(cx, coff, None if mask is None else cm)
         if x_cl.dtype != torch.float32 and any(t is not None for t in (cx, coff, cm)):
-            raise NotImplementedError("the DCN's second order takes float32; bf16 is "
-                                      "ROADMAP A.7")
+            raise NotImplementedError("the DCN's second order takes float32; there is no "
+                                      "bf16 second order yet")
         weight = weight.contiguous()
         gx = goff = gmask = gw = ggo = None
         if cx is not None:
@@ -399,8 +399,8 @@ class DcnBwdWeightFunction(torch.autograd.Function):
         if cw is None:
             return None, None, None, None, None, None
         if x_cl.dtype != torch.float32:
-            raise NotImplementedError("the DCN's second order takes float32; bf16 is "
-                                      "ROADMAP A.7")
+            raise NotImplementedError("the DCN's second order takes float32; there is no "
+                                      "bf16 second order yet")
         cw = cw.contiguous()
         gx = goff = gmask = ggo = None
         if need[3]:

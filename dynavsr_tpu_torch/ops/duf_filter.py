@@ -13,7 +13,7 @@ Second order (DUF's meta-training, a gradient of a gradient): the filter
 is bilinear in (x, filters), so the backward runs K7 through
 `DufBwdFunction`, whose own backward is K6 / K7 again with their inputs
 swapped; no other kernel is needed. It takes fp32 filters and cotangents
-(bf16 raises: ROADMAP A.7's bf16 second order). A first-order backward
+(bf16 raises: no bf16 second order yet). A first-order backward
 launches K7 once, as before; a third backward raises.
 
 Layout: NCHW planes, the port's DUF's own (see duf_filter_ref.py).
@@ -163,7 +163,7 @@ class DufBwdFunction(torch.autograd.Function):
         present = [t for t in (cx, cf) if t is not None]
         if present and any(t.dtype == torch.bfloat16 for t in (filters, *present)):
             raise NotImplementedError("the dynamic filter's second order takes float32 filters; "
-                                      "a bf16 second order is ROADMAP A.7")
+                                      "no bf16 second order yet")
         gx = gf = ggo = None
         if cx is not None:
             cx = cx.contiguous()

@@ -74,7 +74,7 @@ def load_pretrained(model: torch.nn.Module, path: Optional[str], strict: bool = 
             f"{path}: a JAX orbax checkpoint directory. Reading it needs orbax and "
             "tensorstore, which the port does not import; restore it with the JAX package "
             "and convert the params with convert/from_jax.py:jax_params_to_state_dict, then "
-            "torch.save the state_dict as a .pth (ROADMAP A.2)")
+            "torch.save the state_dict as a .pth (reading orbax checkpoints is not ported)")
     raise ValueError(f"{path}: not a .pth / .pt checkpoint")
 
 

@@ -229,10 +229,10 @@ def test_meta_model_with_a_fed_batch_matches_jax(setup, jax_steps, tmp_path):
 
 def test_meta_model_refuses_what_has_no_second_order_kernels(tmp_path):
     """A bf16 second order through the DCN or the dynamic filter raises
-    (ROADMAP A.7); TOF and DUF build to second order, TOF in bf16 too (its
-    warps stay fp32)."""
+    (no bf16 second order yet); TOF and DUF build to second order, TOF in
+    bf16 too (its warps stay fp32)."""
     save_network(str(tmp_path), 0, EDVR(**CFG))
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="bf16 second order"):
         create_model(_meta_opt(tmp_path, dtype="bfloat16"), device="cpu")
 
     def meta(net, first_order=False):
@@ -242,7 +242,7 @@ def test_meta_model_refuses_what_has_no_second_order_kernels(tmp_path):
     tof, duf = {"which_model_G": "TOF", "nframes": 3}, {"which_model_G": "DUF_16L"}
     for net in (tof, duf, {**tof, "dtype": "bfloat16"}):
         assert not create_model(meta(net), device="cpu").meta_cfg.first_order
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="bf16 second order"):
         create_model(meta({**duf, "dtype": "bfloat16"}), device="cpu")
     assert create_model(meta({**duf, "dtype": "bfloat16"}, True), device="cpu"
                         ).meta_cfg.first_order

@@ -392,9 +392,9 @@ def test_non_strict_load_keeps_the_model_where_shapes_differ(tmp_path):
 def test_what_the_port_still_refuses_says_why(tmp_path):
     """Only orbax checkpoint directories, second-order meta-training where
     the port has no double-backward kernels (bf16 DUF and EDVR: the
-    second-order kernels take fp32), multi-process launchers and eval.tile
-    raise, each naming its ROADMAP
-    item and the reason. An LMDB root now reads: a test set over one (raw
+    second-order kernels take fp32), multi-process launchers and
+    adapt.clip_parallel raise, each naming the missing feature and the
+    reason; eval.tile builds (no tiled sequence mode). An LMDB root now reads: a test set over one (raw
     frames with their .meta, the port's writer) gives JAX's items; the
     meta-training dataset modes build MetaVideoDataset."""
     from dynavsr_tpu_torch.cli import train as train_cli
@@ -403,7 +403,7 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
     net = _tiny_edvr(0)
     (tmp_path / "100_G").mkdir()
     for ckpt in (tmp_path / "100_G", tmp_path / "DynaVSR_EDVR_M.ckpt"):
-        with pytest.raises(NotImplementedError, match="orbax.*tensorstore.*A.2"):
+        with pytest.raises(NotImplementedError, match="orbax.*tensorstore.*orbax checkpoints"):
             load_pretrained(net, str(ckpt))
     frames = (np.random.default_rng(0).random((4, 6, 5, 3)) * 255).astype(np.uint8)
     lmdb = str(tmp_path / "x.lmdb")
@@ -424,19 +424,28 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
                           MetaVideoDataset)
     with pytest.raises(NotImplementedError, match="not recognized"):
         create_dataset({"mode": "Kinetics", "dataroot_LQ": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="second-order.*DUF.*A.7"):
+    with pytest.raises(NotImplementedError, match="second-order.*DUF.*bf16 second order"):
         create_model({"model": "video_meta", "network_G": {"which_model_G": "DUF_16L",
                                                             "dtype": "bfloat16"},
                       "train": {"first_order": False}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16.*A.7"):
+    with pytest.raises(NotImplementedError, match="bfloat16.*bf16 second order"):
         create_model({"model": "video_meta", "network_G": {
             "which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RBs": 1,
             "back_RBs": 1, "dtype": "bfloat16"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed.*A.6"):
+    with pytest.raises(NotImplementedError, match="torch.distributed.*multi-device"):
         train_cli.main(["-opt", "unused.yml", "--launcher", "pytorch"])
-    with pytest.raises(NotImplementedError, match="eval.tile"):
-        VideoBaseModel({"network_G": {"which_model_G": "MFDN", "nf": 8}, "eval": {"tile": 64}},
-                       device="cpu")
+    tiled = VideoBaseModel({"network_G": {"which_model_G": "EDVR", "nf": 8, "nframes": 3,
+                                          "groups": 2, "front_RBs": 1, "back_RBs": 1},
+                            "eval": {"tile": 64}}, device="cpu")
+    assert tiled.tile == 64 and tiled.make_seq_infer_fn() is None
+    from dynavsr_tpu_torch.cli import test_dynavsr as dynavsr_cli
+
+    yml = tmp_path / "clip_parallel.yml"
+    yml.write_text("name: cp\nscale: 4\nnetwork_G: {which_model_G: EDVR}\n"
+                   "adapt: {clip_parallel: true}\n")
+    pytest.importorskip("yaml")
+    with pytest.raises(NotImplementedError, match="clip_parallel.*multi-device"):
+        dynavsr_cli.main(["-opt", str(yml), "--device", "cpu"])
 
 
 CONFIGS = sorted((ROOT / "configs" / "test").glob("*.yml"))
