@@ -27,6 +27,15 @@ BatchNorm nets (TOF, DUF) adapt in one of two `bn_mode`s:
 
 The optimizer is optax's: 'adam' (betas 0.9 / 0.999, eps 1e-8) or 'sgd'
 (no momentum, no weight decay), at `lr`.
+
+Clip-parallel adaptation (`make_adapt_and_infer_batched`, `_seq_batched`)
+takes stacks of C clips padded to common shapes (`batch_clips`,
+`batch_clips_seq`). Each rank of a torch.distributed group runs its
+contiguous share of the clips one after another, one module copy a clip,
+with dense convs: JAX's `_clip_parallel` design (a `lax.map` over the
+clips on each device, the clips sharded over the mesh), chosen there
+because vmapping over per-clip weights measured 1.93x slower. The results
+are then assembled on every rank (parallel/mesh.gather_rows).
 """
 
 from __future__ import annotations
@@ -35,13 +44,18 @@ import copy
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from dynavsr_tpu_torch.data.windows import all_windows
+from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.losses import charbonnier_loss
 
 __all__ = ["AdaptConfig", "chunked_apply", "has_batch_norm", "resolve_bn_mode",
-           "make_adapt_fn", "make_adapt_and_infer", "make_adapt_and_infer_seq", "seq_forward"]
+           "make_adapt_fn", "make_adapt_and_infer", "make_adapt_and_infer_seq", "seq_forward",
+           "make_adapt_and_infer_batched", "make_adapt_and_infer_seq_batched", "batch_clips",
+           "batch_clips_seq"]
 
 
 @dataclasses.dataclass
@@ -193,3 +207,103 @@ def seq_forward(model, frames: torch.Tensor, win_idx: torch.Tensor,
         return model.fuse_pyramid(l1[idx], l2[idx], l3[idx], frames[idx[:, center]])
 
     return chunked_apply(fuse, win_idx, infer_chunk)
+
+
+def _clip_parallel(single: Callable) -> Callable:
+    """run(meta_model, *stacks) -> (sr (C, ...), losses (C, n_steps)):
+    `single` (one clip's adapt + infer) over the leading clips axis of the
+    stacks. Each rank runs its contiguous share of the C clips in turn (C
+    must divide by the world size), and the results are gathered onto every
+    rank, so every rank returns the whole stack, as JAX's sharded output
+    holds it."""
+
+    def run(meta_model, *stacks):
+        c = stacks[0].shape[0]
+        rows = mesh.batch_rows(c)
+        outs = [single(meta_model, *(s[i] for s in stacks)) for i in range(rows.start, rows.stop)]
+        sr = torch.stack([o[0] for o in outs])
+        losses = torch.stack([o[1] for o in outs])
+        return mesh.gather_rows(sr, c, rows), mesh.gather_rows(losses, c, rows)
+
+    return run
+
+
+def make_adapt_and_infer_batched(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
+                                 mutable_apply_fn: Optional[Callable] = None) -> Callable:
+    """Clip-parallel make_adapt_and_infer: run(meta_model, slr_windows (C,
+    K, N, h/s, w/s, 3), lr_centers (C, K, h, w, 3), lr_windows (C, F, N, h,
+    w, 3)) -> (sr (C, F, H, W, 3), losses (C, n_steps)). Every clip adapts
+    its own copy of meta_model; the stacks come from batch_clips (padded
+    rows repeat the last window; callers slice sr[i, :lengths[i]])."""
+    return _clip_parallel(make_adapt_and_infer(cfg, apply_fn, mutable_apply_fn))
+
+
+def make_adapt_and_infer_seq_batched(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
+                                     mutable_apply_fn: Optional[Callable] = None) -> Callable:
+    """Clip-parallel make_adapt_and_infer_seq: run(meta_model, slr_windows
+    (C, K, N, h/s, w/s, 3), lr_centers (C, K, h, w, 3), frames (C, T, h, w,
+    3), win_idx (C, F, N)) -> (sr (C, F, H, W, 3), losses (C, n_steps)),
+    from batch_clips_seq's stacks (frames mod-4 padded by the caller)."""
+    return _clip_parallel(make_adapt_and_infer_seq(cfg, apply_fn, mutable_apply_fn))
+
+
+def _adapt_index(f: int, n_adapt: int) -> np.ndarray:
+    """The adaptation windows of a clip of f windows: the first n_adapt, or
+    for a shorter clip all f repeated in turn up to n_adapt (JAX's batched
+    selection; the per-clip path, cli/test_dynavsr.run_clip, takes a short
+    clip's f windows once, so the two differ there, in JAX too)."""
+    return np.resize(np.arange(min(f, n_adapt)), n_adapt)
+
+
+def _check_uniform_hw(shapes, fn_name: str) -> None:
+    """Clip batching pads T / F only: a set of mixed (h, w) clips must be
+    bucketed by resolution first (cli/test_dynavsr.run_clips does)."""
+    if len(set(map(tuple, shapes))) > 1:
+        raise ValueError(
+            f"{fn_name} requires uniform (h, w) across clips, got "
+            f"{sorted(set(map(tuple, shapes)))} — bucket clips by "
+            "resolution and batch each bucket separately")
+
+
+def batch_clips(clip_windows, n_adapt: int, center: int):
+    """Pad per-clip window stacks (F_i, N, h, w, 3) to a common frame count
+    (numpy in, numpy out). Returns (lr_windows (C, Fmax, N, h, w, 3),
+    adaptation windows (C, K, N, h, w, 3), lr_centers (C, K, h, w, 3),
+    lengths); padding repeats the last window."""
+    _check_uniform_hw([w.shape[2:4] for w in clip_windows], "batch_clips")
+    fmax = max(w.shape[0] for w in clip_windows)
+    lw, aw, lc, lens = [], [], [], []
+    for w in clip_windows:
+        f = w.shape[0]
+        lw.append(np.concatenate([w, np.repeat(w[-1:], fmax - f, axis=0)], axis=0)
+                  if f < fmax else w)
+        sel = w[_adapt_index(f, n_adapt)]
+        aw.append(sel)
+        lc.append(sel[:, center])
+        lens.append(f)
+    return np.stack(lw), np.stack(aw), np.stack(lc), lens
+
+
+def batch_clips_seq(clips, n_frames: int, padding: str, n_adapt: int, center: int):
+    """Pad raw clips (T_i, h, w, 3) and their sliding-window index tables to
+    common shapes for the batched sequence path (numpy in, numpy out).
+    Returns (frames (C, Tmax, h, w, 3), win_idx (C, Tmax, N) int32,
+    adaptation windows (C, K, N, h, w, 3), lr_centers (C, K, h, w, 3),
+    lengths): Tmax is a multiple of 8, padding repeats the last frame and the
+    last window row, and the adaptation windows are batch_clips' selection."""
+    _check_uniform_hw([c.shape[1:3] for c in clips], "batch_clips_seq")
+    tmax = -(-max(c.shape[0] for c in clips) // 8) * 8
+    frames, wins, aw, lc, lens = [], [], [], [], []
+    for c in clips:
+        t = c.shape[0]
+        win = all_windows(t, n_frames, padding)
+        frames.append(np.concatenate([c, np.repeat(c[-1:], tmax - t, axis=0)], axis=0)
+                      if t < tmax else c)
+        wins.append(np.concatenate([win, np.repeat(win[-1:], tmax - t, axis=0)], axis=0)
+                    if t < tmax else win)
+        sel = c[win[_adapt_index(t, n_adapt)]]
+        aw.append(sel)
+        lc.append(sel[:, center])
+        lens.append(t)
+    return (np.stack(frames), np.stack(wins).astype(np.int32), np.stack(aw), np.stack(lc),
+            lens)

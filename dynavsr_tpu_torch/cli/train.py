@@ -25,8 +25,24 @@ Every `logger.save_checkpoint_freq` iterations, and at the end, it writes
 `<experiments>/<name>/models/<iter>_G.pth` and
 `training_state/<iter>.state`; `path.resume_state: .../<iter>.state`
 resumes from them on exactly the batches the run would have seen next.
-Scalars go to `<root>/tb_logger/<name>/metrics.jsonl`. Multi-process
-launchers (multi-device launch) are not ported yet and raise.
+Scalars go to `<root>/tb_logger/<name>/metrics.jsonl`.
+
+Data-parallel training runs one process a card under torchrun with
+`--launcher pytorch` (the reference's name; `none`, the default, is one
+process, and anything else raises):
+
+    python -m torch.distributed.run --nproc_per_node 4 -m dynavsr_tpu_torch.cli.train \
+        -opt configs/train/train_EDVR_M_REDS.yml --launcher pytorch
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m dynavsr_tpu_torch.cli.train -opt ... --launcher pytorch --device cpu   # gloo
+
+`datasets.train.batch_size` is the global batch (parallel/mesh.py; it must
+divide by the world size): each rank loads its share, degrades its rows as
+the global draw would, and the step all-reduces the gradients, so the W-rank
+run trains the one-process run's function. Rank 0 alone archives and makes
+the experiment directories, logs to file and screen, writes metrics,
+validates and saves; the other ranks wait at barriers. A resume loads on
+every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import evaluate_dataset
 from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator
 from dynavsr_tpu_torch.models.video_base_model import create_model
+from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 from dynavsr_tpu_torch.utils.observability import MetricsWriter
 from dynavsr_tpu_torch.utils.util import mkdir_and_rename, mkdirs, set_random_seed, setup_logger
@@ -68,12 +85,15 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def synthesize_meta_batch(gen: torch.Generator, hr, scale: int,
                           estimator: Optional[Callable] = None,
-                          noise_range: Tuple[float, float] = (0.0, 0.0)) -> Dict[str, torch.Tensor]:
+                          noise_range: Tuple[float, float] = (0.0, 0.0),
+                          share: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """(SLR, LR, centres) from HR windows (B, N, H, W, 3), on gen's
     device. With an estimator, SLR = estimator(LR) (DynaVSR's
-    estimator-in-the-loop training) instead of the same-kernel synthesis."""
+    estimator-in-the-loop training) instead of the same-kernel synthesis.
+    share = (first row, global batch) for a rank's rows of a global batch
+    (data/degradations.synthesize_pair)."""
     hr = torch.as_tensor(hr, dtype=torch.float32, device=gen.device)
-    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range)
+    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range, share=share)
     if estimator is not None:
         slr = estimator(lr)
     c = hr.shape[1] // 2
@@ -81,11 +101,13 @@ def synthesize_meta_batch(gen: torch.Generator, hr, scale: int,
 
 
 def synthesize_downscaler_batch(gen: torch.Generator, hr, scale: int,
-                                noise_range: Tuple[float, float] = (0.0, 0.0)
+                                noise_range: Tuple[float, float] = (0.0, 0.0),
+                                share: Optional[Tuple[int, int]] = None
                                 ) -> Dict[str, torch.Tensor]:
-    """{LR, SLR} from HR windows (B, N, H, W, 3), on gen's device."""
+    """{LR, SLR} from HR windows (B, N, H, W, 3), on gen's device; `share`
+    as synthesize_meta_batch's."""
     hr = torch.as_tensor(hr, dtype=torch.float32, device=gen.device)
-    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range)
+    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range, share=share)
     return {"LR": lr, "SLR": slr}
 
 
@@ -119,19 +141,20 @@ def main(argv=None) -> int:
     iteration."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", required=True, help="Path to YAML config.")
-    parser.add_argument("--launcher", default="none")
+    parser.add_argument("--launcher", default="none",
+                        help="none (one process) or pytorch (torchrun, one process a card)")
     parser.add_argument("--device", default=None, help="default: cuda")
     parser.add_argument("--max-iters", type=int, default=None,
                         help="Override train.niter (smoke tests).")
     args = parser.parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-process training (torch.distributed) is "
-            "not ported yet (the multi-device launch slice)")
     from dynavsr_tpu_torch.config.options import parse
 
-    device = resolve_device(args.device)
-    return train(parse(args.opt, is_train=True), device=device, max_iters=args.max_iters)
+    device = mesh.init_dist(args.launcher, args.device)
+    try:
+        return train(parse(args.opt, is_train=True), device=device, max_iters=args.max_iters)
+    finally:
+        if args.launcher != "none":
+            torch.distributed.destroy_process_group()
 
 
 def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
@@ -140,17 +163,20 @@ def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
     device = resolve_device(device)
     which = opt.get("model") or "video_base"
     paths = opt["path"]
-    # The experiment directory is archived only for a fresh run: a resuming
-    # run keeps the one that holds the state it loads.
-    if not paths.get("resume_state"):
-        mkdir_and_rename(paths["experiments_root"])
-    mkdirs([paths["models"], paths["training_state"], paths["val_images"]])
-    logger = setup_logger("base", paths["log"], "train", screen=True, tofile=True)
+    primary = mesh.is_primary()
+    if primary:
+        # The experiment directory is archived only for a fresh run: a
+        # resuming run keeps the one that holds the state it loads.
+        if not paths.get("resume_state"):
+            mkdir_and_rename(paths["experiments_root"])
+        mkdirs([paths["models"], paths["training_state"], paths["val_images"]])
+    mesh.barrier()
+    logger = setup_logger("base", paths["log"], "train", screen=primary, tofile=primary)
     logger.info(dict2str(opt))
     seed = opt["train"].get("manual_seed") or 0
     set_random_seed(seed)
     tb = None
-    if (opt.get("logger") or {}).get("tb_logger", True) is not False:
+    if primary and (opt.get("logger") or {}).get("tb_logger", True) is not False:
         tb = MetricsWriter(osp.join(paths["root"], "tb_logger", opt.get("name") or "run"))
 
     train_loader = val_set = None
@@ -188,14 +214,17 @@ def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
     noise = noise_range(opt)
     estimator = build_frozen_estimator(opt, device) if which in _META else None
 
+    # This rank's rows of each global batch, for the degradations' draws.
+    share = (train_loader.rows.start, train_loader.batch_size)
+
     def feed(batch, step: int) -> None:
         if which in _META:
             model.feed_data(synthesize_meta_batch(step_generator(seed, step, device),
-                                                  batch["HR"], scale, estimator, noise))
+                                                  batch["HR"], scale, estimator, noise, share))
         elif which in _DOWNSCALER:
             model.feed_data(synthesize_downscaler_batch(
                 step_generator(seed, step, device), batch.get("HR", batch.get("GT")), scale,
-                noise))
+                noise, share))
         else:
             model.feed_data(batch)
 
@@ -238,7 +267,9 @@ def train(opt: Mapping, device=None, max_iters: Optional[int] = None) -> int:
                 wait = 0.0
 
             if val_set is not None and current_step % val_freq == 0:
-                _validate(model, val_set, opt, current_step, logger)
+                if primary:
+                    _validate(model, val_set, opt, current_step, logger)
+                mesh.barrier()
 
             if current_step % save_freq == 0:
                 logger.info("Saving models and training states.")

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,21 +140,28 @@ def bicubic_downsample(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 def synthesize_pair(gen: torch.Generator, hr: torch.Tensor, scale: int, size: int = 13,
                     sigma_range: Tuple[float, float] = (0.2, 4.0), aniso_prob: float = 0.5,
-                    noise_range: Tuple[float, float] = (0.0, 0.0)):
+                    noise_range: Tuple[float, float] = (0.0, 0.0),
+                    share: Optional[Tuple[int, int]] = None):
     """(LR, SLR, kernels) from an HR clip batch (B, T, H, W, C) on gen's
     device: one random kernel per clip, shared by its frames, applied
     twice. The kernels are drawn first, so their draw does not depend on
     noise_range. With noise_range[1] > 0 a per-clip sigma ~ U(noise_range)
     of additive Gaussian noise is put on LR, which is clipped to [0, 1];
     SLR is then the blur-down of the noisy LR (the JAX package's
-    beyond-reference extension)."""
+    beyond-reference extension). share = (first row, global batch): hr is
+    rows [first, first + B) of a global batch, and every draw is made for
+    the global batch and cut to those rows, so a rank of a data-parallel
+    run degrades its rows as the one-process run does."""
     b = hr.shape[0]
-    kernels = random_kernel_batch(gen, b, size, sigma_range, aniso_prob)
+    first, total = share or (0, b)
+    rows = slice(first, first + b)
+    kernels = random_kernel_batch(gen, total, size, sigma_range, aniso_prob)[rows]
     lr = blur_downsample(hr, kernels, scale)
     if noise_range[1] > 0.0:
         lo, hi = noise_range
-        nsig = lo + (hi - lo) * torch.rand(b, generator=gen, device=gen.device)
-        noise = torch.randn(lr.shape, generator=gen, device=gen.device, dtype=lr.dtype)
+        nsig = (lo + (hi - lo) * torch.rand(total, generator=gen, device=gen.device))[rows]
+        noise = torch.randn((total,) + tuple(lr.shape[1:]), generator=gen, device=gen.device,
+                            dtype=lr.dtype)[rows]
         lr = (lr + nsig.view(b, *(1,) * (lr.dim() - 1)).to(lr.dtype) * noise).clamp(0.0, 1.0)
     slr = blur_downsample(lr, kernels, scale)
     return lr, slr, kernels

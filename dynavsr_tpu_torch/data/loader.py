@@ -3,9 +3,15 @@
 create_dataset dispatches on a dataset block's `mode`, as the JAX package
 does. create_dataloader returns a PrefetchLoader: shuffled batches of
 stacked numpy items, decoded ahead by a small thread pool (image decode and
-the numpy copies release the interpreter lock). One process reads the whole
-index stream (process index 0 of 1); sharding it over torch.distributed
-ranks belongs to the multi-device launch, not ported yet.
+the numpy copies release the interpreter lock).
+
+Under torch.distributed the config's `batch_size` is the global batch, as
+in JAX's one-process mesh and the reference's DDP; it must divide by the
+world size. Every rank walks the same (seed, epoch) index stream in global
+batches and decodes its contiguous share of each (parallel/mesh.batch_rows),
+each item with the augmentation rng of its global stream position: the W
+ranks' batches, concatenated in rank order, are the one-process run's
+batch, item for item, and resume skip-ahead counts global batches.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from dynavsr_tpu_torch.data.datasets import (
     Vimeo90KDataset,
     Vimeo90KTestDataset,
 )
+from dynavsr_tpu_torch.parallel import mesh
 
 __all__ = ["create_dataset", "create_dataloader", "PrefetchLoader"]
 
@@ -49,20 +56,18 @@ def create_dataset(dataset_opt: Mapping):
     raise NotImplementedError(f"Dataset [{mode}] is not recognized.")
 
 
-def _epoch_indices(n: int, seed: int, epoch: int) -> np.ndarray:
-    return np.random.default_rng(seed + epoch).permutation(n)
-
-
 class PrefetchLoader:
     """Iterates a dataset in shuffled batches, a background thread pool
     decoding up to _PREFETCH batches ahead. The index stream of an epoch
     and each item's augmentation rng are functions of (seed, epoch, stream
     position) only, so set_skip_batches resumes a run on exactly the
     batches it would have seen. A worker's exception is raised in the
-    consumer."""
+    consumer. `batch_size` is the global batch; rank `rank` of `world`
+    yields its contiguous share of each (batch_size / world items)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_workers: int = 3):
+                 num_workers: int = 3, rank: int = 0, world: int = 1):
+        self.rows = mesh.batch_rows(batch_size, rank, world)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -88,7 +93,8 @@ class PrefetchLoader:
 
     def _index_stream(self) -> np.ndarray:
         n = len(self.dataset)
-        return _epoch_indices(n, self.seed, self.epoch) if self.shuffle else np.arange(n)
+        return mesh.process_local_slice(n, self.seed, self.epoch) if self.shuffle \
+            else np.arange(n)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """Full batches only: a last partial batch is dropped."""
@@ -112,8 +118,8 @@ class PrefetchLoader:
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
                     for b in range(first, nb):
-                        batch_idx = idx[b * self.batch_size: (b + 1) * self.batch_size]
-                        pos0 = b * self.batch_size
+                        pos0 = b * self.batch_size + self.rows.start
+                        batch_idx = idx[pos0: b * self.batch_size + self.rows.stop]
                         items = list(ex.map(self._fetch, batch_idx,
                                             range(pos0, pos0 + len(batch_idx))))
                         batch: Dict[str, np.ndarray] = {}
@@ -150,8 +156,9 @@ class PrefetchLoader:
 def create_dataloader(dataset, dataset_opt: Mapping, opt: Optional[Mapping] = None
                       ) -> PrefetchLoader:
     """The training set's loader: shuffled batches of `batch_size` (seed
-    train.manual_seed, `n_workers` decode threads). Test and validation
-    sets are read by eval/harness.evaluate_dataset, not through a loader."""
+    train.manual_seed, `n_workers` decode threads), this rank's share of
+    each under torch.distributed. Test and validation sets are read by
+    eval/harness.evaluate_dataset, not through a loader."""
     if dataset_opt.get("phase", "test") != "train":
         raise ValueError(f"phase {dataset_opt.get('phase')!r}: the loader serves the training "
                          "set; evaluate_dataset reads test sets")
@@ -161,4 +168,6 @@ def create_dataloader(dataset, dataset_opt: Mapping, opt: Optional[Mapping] = No
         shuffle=dataset_opt.get("use_shuffle", True) is not False,
         seed=((opt or {}).get("train") or {}).get("manual_seed") or 0,
         num_workers=dataset_opt.get("n_workers", 3),
+        rank=mesh.get_rank(),
+        world=mesh.get_world_size(),
     )

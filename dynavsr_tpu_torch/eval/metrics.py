@@ -10,7 +10,6 @@ correlation). Parity here gates the <=0.05 dB acceptance metric.
 from __future__ import annotations
 
 import numpy as np
-from scipy.signal import convolve2d
 
 __all__ = ["calculate_psnr", "calculate_ssim"]
 
@@ -34,6 +33,10 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 
 def _ssim_single(img1: np.ndarray, img2: np.ndarray) -> float:
+    # Imported here: scipy.signal takes seconds to import, and a process
+    # that never scores (a training rank, a spawned worker) should not wait.
+    from scipy.signal import convolve2d
+
     c1 = (0.01 * 255) ** 2
     c2 = (0.03 * 255) ** 2
     a = img1.astype(np.float64)

@@ -11,14 +11,18 @@ the same tensors on a leading axis (nn.scan). `BatchNorm2d` and
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Conv2d", "Conv3d", "conv", "BatchNorm2d", "BatchNorm3d", "ResidualBlockNoBN", "ResTrunk", "lrelu",
-           "interpolate_bilinear", "max_pool_3x3_s2", "avg_pool_3x3_s2", "avg_pool2"]
+from dynavsr_tpu_torch.parallel import mesh
+
+__all__ = ["Conv2d", "Conv3d", "conv", "BatchNorm2d", "BatchNorm3d", "global_batch_stats",
+           "ResidualBlockNoBN", "ResTrunk", "lrelu", "interpolate_bilinear", "max_pool_3x3_s2",
+           "avg_pool_3x3_s2", "avg_pool2"]
 
 
 class _ComputeDtype:
@@ -64,7 +68,11 @@ class _FlaxBatchNorm:
     keep flax's default 0.99 (torch 0.01). The output has the input's
     dtype. In eval mode, running statistics that require grad (adaptation
     in bn_mode 'grad_stats') get gradients: the formula is written out
-    there, since the fused op is not differentiable in them."""
+    there, since the fused op is not differentiable in them. Under
+    global_batch_stats, train mode normalises with the global batch's
+    statistics across the ranks of a torch.distributed group."""
+
+    global_stats = False  # set by global_batch_stats
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -83,6 +91,8 @@ class _FlaxBatchNorm:
                 y = F.batch_norm(x32, self.running_mean, self.running_var, self.weight,
                                  self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
+        if self.global_stats and mesh.get_world_size() > 1:
+            return self._global_batch_forward(x32).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x32, dim=(0, *range(2, x.dim())), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
@@ -90,6 +100,45 @@ class _FlaxBatchNorm:
             self.num_batches_tracked.add_(1)
         y = F.batch_norm(x32, None, None, self.weight, self.bias, True, 0.0, self.eps)
         return y.to(x.dtype)
+
+    def _global_batch_forward(self, x32: torch.Tensor) -> torch.Tensor:
+        """Train mode when the ranks hold shares of one batch
+        (global_batch_stats): the statistics are the global batch's, as in
+        JAX's sharded step. The mean, then the biased
+        variance about it, are each one differentiable all-reduce of local
+        sums (the element count rides with the first), so the gradient
+        reaches every rank's input through them."""
+        dims = (0, *range(2, x32.dim()))
+        shape = (1, -1) + (1,) * (x32.dim() - 2)
+        count = x32.new_tensor([x32.numel() // x32.shape[1]])
+        total = mesh.all_reduce_sum(torch.cat([x32.sum(dims), count]))
+        n = total[-1].detach()
+        mean = total[:-1] / n
+        xc = x32 - mean.view(shape)
+        var = mesh.all_reduce_sum((xc * xc).sum(dims)) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return xc * mul.view(shape) + self.bias.view(shape)
+
+
+@contextlib.contextmanager
+def global_batch_stats(model: nn.Module):
+    """Within the block the ranks hold shares of one global batch, and every
+    BatchNorm of `model` normalises in train mode with the global batch's
+    statistics (the data-parallel train step). Elsewhere (serving,
+    clip-parallel adaptation, where each rank's clips are its own) each
+    rank's statistics are its own."""
+    bns = [m for m in model.modules() if isinstance(m, _FlaxBatchNorm)]
+    for m in bns:
+        m.global_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.global_stats = False
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

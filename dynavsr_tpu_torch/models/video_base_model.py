@@ -19,6 +19,13 @@ windows and their LR / HR centres, both forwards mod-padded as
 running statistics beside its parameters, as the JAX package's meta step
 differentiates and steps them. DownscalerModel trains MFDN / SFDN with the
 LR windows as input and the SLR windows as target.
+
+Under torch.distributed (one process a card, parallel/mesh.py) the net is
+rank 0's at construction and after a resume (broadcast: JAX's
+`replicate`), every rank trains on its share of the global batch, and rank
+0 alone writes `.pth` / `.state` files while the others wait at a barrier.
+`n_devices`, which caps JAX's mesh, must equal the world size the launcher
+made when it is set.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.tiled import make_tiled_apply
 from dynavsr_tpu_torch.models.networks import define_G
 from dynavsr_tpu_torch.models.padding import arch_mod, make_model_apply
+from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train import checkpoint
 from dynavsr_tpu_torch.train.checkpoint import load_network, load_pretrained, save_network
 from dynavsr_tpu_torch.train.meta import MetaConfig, make_meta_train_step, meta_variables
@@ -48,7 +56,7 @@ from dynavsr_tpu_torch.train.trainer import (
 )
 
 __all__ = ["VideoBaseModel", "MetaModel", "DownscalerModel", "create_model",
-           "trainer_config_from_opt"]
+           "trainer_config_from_opt", "check_n_devices"]
 
 
 def trainer_config_from_opt(opt: Mapping) -> TrainerConfig:
@@ -86,10 +94,12 @@ class VideoBaseModel:
         self.tile, self.tile_overlap = ev.get("tile"), ev.get("tile_overlap")
         self.scale = opt.get("scale", 4)
         self.infer_chunk = int(ev.get("infer_chunk") or 8)
+        check_n_devices(opt)
         self.netG = define_G(opt, self.device).eval()
         path = opt.get("path") or {}
         load_pretrained(self.netG, path.get("pretrain_model_G"),
                         strict=path.get("strict_load", True) is not False)
+        mesh.replicate(self.netG)
         self.is_train = bool(opt.get("is_train"))
         self.cfg = trainer_config_from_opt(opt)
         self.sched = make_schedule(self.cfg)
@@ -161,19 +171,23 @@ class VideoBaseModel:
         """No-op: the train step sets every update's lr from the schedule."""
 
     def save(self, it) -> str:
-        """<models>/<it>_G.pth."""
-        return save_network(self.opt["path"]["models"], int(it), self.netG)
+        """<models>/<it>_G.pth, written by rank 0."""
+        return _on_primary(lambda: save_network(self.opt["path"]["models"], int(it), self.netG),
+                           osp.join(osp.abspath(self.opt["path"]["models"]), f"{int(it)}_G.pth"))
 
     def save_training_state(self, epoch: int, it: int) -> str:
-        """<training_state>/<it>.state."""
-        return checkpoint.save_training_state(self.opt["path"]["training_state"], epoch,
-                                              int(it), self.optimizer)
+        """<training_state>/<it>.state, written by rank 0."""
+        return _on_primary(
+            lambda: checkpoint.save_training_state(self.opt["path"]["training_state"], epoch,
+                                                   int(it), self.optimizer),
+            osp.join(osp.abspath(self.opt["path"]["training_state"]), f"{int(it)}.state"))
 
     def resume_training(self, state_path: str) -> int:
         """Restore the optimizer and the update count from a .state file and
         the net from <models>/<iter>_G.pth; returns the saved epoch."""
         epoch, it = checkpoint.resume_training(state_path, self.optimizer)
         load_network(osp.join(self.opt["path"]["models"], f"{it}_G.pth"), self.netG)
+        mesh.replicate(self.netG)
         self.step = it
         return epoch
 
@@ -218,6 +232,23 @@ class VideoBaseModel:
             return sr[:, : h * self.scale, : w * self.scale].cpu().numpy()
 
         return infer
+
+
+def check_n_devices(opt: Mapping) -> None:
+    """`n_devices` caps JAX's mesh; in the port the launcher fixes the world
+    size, so a set n_devices must equal it."""
+    nd = opt.get("n_devices")
+    if nd and int(nd) != mesh.get_world_size():
+        raise ValueError(f"n_devices is {nd}, but the launcher started "
+                         f"{mesh.get_world_size()} rank(s)")
+
+
+def _on_primary(write: Callable[[], str], path: str) -> str:
+    """write() on rank 0, the other ranks waiting at a barrier; the path."""
+    if mesh.is_primary():
+        path = write()
+    mesh.barrier()
+    return path
 
 
 def _to_device(data: Mapping, keys, device) -> Dict[str, torch.Tensor]:

@@ -25,6 +25,15 @@ optimizer's step like any weight (`meta_variables`). Here they stay buffers
 under torch's keys: the step differentiates leaf copies of them and hands
 the optimizer their gradients; the eval BatchNorm takes its written-out
 formula for statistics that require grad (models/arch_util.py).
+
+Under torch.distributed each rank holds its share of the global batch
+(parallel/mesh.py). JAX's inner loss is the mean over the global batch, so
+the inner gradient is all-reduced inside the graph (mesh.all_reduce_sum,
+whose backward is again an all-reduce): every rank then holds the same fast
+weights, and the outer gradient reaches the other ranks' inner losses
+through it. The outer gradients and the metrics are all-reduced as the
+supervised step's are (averaged for `reduction: mean`, summed for `sum`).
+DDP's hooks would not see the fast weights, which functional_call runs.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch.nn as nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.losses import charbonnier_loss
 from dynavsr_tpu_torch.train.trainer import apply_update
 
@@ -116,6 +126,7 @@ def adapted_params(model: nn.Module, params: Params, slr: torch.Tensor,
         loss = charbonnier_loss(pred, lr_center, reduction=cfg.reduction)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
                                     create_graph=not cfg.first_order, allow_unused=True)
+        grads = _global_inner_grads(grads, [params[k] for k in names], cfg.reduction)
         step = {}
         for k, g in zip(names, grads):
             if g is None:  # unused by the forward: a zero gradient, as in JAX
@@ -126,6 +137,21 @@ def adapted_params(model: nn.Module, params: Params, slr: torch.Tensor,
             step[k] = params[k] - cfg.inner_lr * g
         params = step
     return params, loss
+
+
+def _global_inner_grads(grads, like, reduction: str):
+    """The inner gradients of the global batch's loss: one differentiable
+    all-reduce of the flattened local gradients (zeros where the forward
+    does not reach a variable, on every rank alike), divided by the world
+    size for a mean-reduced loss. The identity at world size 1."""
+    world = mesh.get_world_size()
+    if world == 1:
+        return grads
+    full = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, like)]
+    flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in full]))
+    if reduction == "mean":
+        flat = flat / world
+    return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in like]), like)]
 
 
 def meta_loss(model: nn.Module, params: Params, batch: Mapping[str, torch.Tensor],
@@ -174,7 +200,9 @@ def make_meta_train_step(model: nn.Module, cfg: MetaConfig, optimizer: torch.opt
         grads = torch.autograd.grad(outer, list(leaves.values()), allow_unused=True)
         for t, g in zip(held, grads):
             t.grad = torch.zeros_like(t) if g is None else g
+        mesh.all_reduce_grads(held, cfg.reduction)
         gnorm = apply_update(optimizer, held, sched(count), grad_clip)
-        return {"l_outer": outer.detach(), "l_inner": inner.detach(), "grad_norm": gnorm}
+        losses = mesh.reduce_value(torch.stack([outer.detach(), inner.detach()]), cfg.reduction)
+        return {"l_outer": losses[0], "l_inner": losses[1], "grad_norm": gnorm}
 
     return step

@@ -14,6 +14,12 @@ gradient, another function. The clip is optax's rule: the gradients are
 scaled by max_norm / norm only when norm >= max_norm (clip_grad_norm_ adds
 1e-6 to the norm). The lr of update t (1-based) is sched(t - 1), set on the
 param groups before each step.
+
+Under torch.distributed each rank's batch is its share of the global batch
+(parallel/mesh.py): the step all-reduces the gradients (averaged for
+`reduction: mean`, summed for `sum`) before the clip and the update, and
+its metrics the same way, so every rank takes JAX's sharded step on the
+global batch and logs what JAX logs.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from dynavsr_tpu_torch.models.arch_util import global_batch_stats
 from dynavsr_tpu_torch.models.edvr import DCNSep
+from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.losses import make_pixel_criterion
 from dynavsr_tpu_torch.train.schedules import (
     cosine_annealing_restart,
@@ -122,7 +130,9 @@ def make_train_step(model: nn.Module, cfg: TrainerConfig, optimizer: torch.optim
 
     metrics (0-d tensors): l_pix, the loss before the update; grad_norm,
     the global norm of the unclipped gradients; and for nets with DCNs
-    dcn_offset_absmean, the largest mean |offset| over them."""
+    dcn_offset_absmean, the largest mean |offset| over them; each the
+    global batch's under torch.distributed. There the train-mode BatchNorm
+    normalises with the global batch's statistics (global_batch_stats)."""
     cri_pix = make_pixel_criterion(cfg.criterion, cfg.reduction)
     sched = make_schedule(cfg)
     params = [p for p in model.parameters() if p.requires_grad]
@@ -132,17 +142,19 @@ def make_train_step(model: nn.Module, cfg: TrainerConfig, optimizer: torch.optim
         offsets: list = []
         handles = _dcn_offset_hooks(model, offsets)
         try:
-            pred = model(batch["LQs"])
+            with global_batch_stats(model):
+                pred = model(batch["LQs"])
         finally:
             for h in handles:
                 h.remove()
         l_pix = cfg.pixel_weight * cri_pix(pred, batch["GT"])
         optimizer.zero_grad(set_to_none=True)
         l_pix.backward()
+        mesh.all_reduce_grads(params, cfg.reduction)
         gnorm = apply_update(optimizer, params, sched(count), cfg.grad_clip)
-        metrics = {"l_pix": l_pix.detach(), "grad_norm": gnorm}
-        if offsets:
-            metrics["dcn_offset_absmean"] = torch.stack(offsets).max()
+        metrics = {"l_pix": mesh.reduce_value(l_pix.detach(), cfg.reduction), "grad_norm": gnorm}
+        if offsets:  # each DCN's mean over the global batch, then the largest
+            metrics["dcn_offset_absmean"] = mesh.reduce_value(torch.stack(offsets)).max()
         return metrics
 
     return step

@@ -392,9 +392,10 @@ def test_non_strict_load_keeps_the_model_where_shapes_differ(tmp_path):
 def test_what_the_port_still_refuses_says_why(tmp_path):
     """Only orbax checkpoint directories, second-order meta-training where
     the port has no double-backward kernels (bf16 DUF and EDVR: the
-    second-order kernels take fp32), multi-process launchers and
-    adapt.clip_parallel raise, each naming the missing feature and the
-    reason; eval.tile builds (no tiled sequence mode). An LMDB root now reads: a test set over one (raw
+    second-order kernels take fp32), a launcher other than none / pytorch
+    and an n_devices the launch did not start raise, each naming the
+    missing feature or the mismatch; adapt.clip_parallel is accepted (its
+    config reaches the n_devices check); eval.tile builds (no tiled sequence mode). An LMDB root now reads: a test set over one (raw
     frames with their .meta, the port's writer) gives JAX's items; the
     meta-training dataset modes build MetaVideoDataset."""
     from dynavsr_tpu_torch.cli import train as train_cli
@@ -432,8 +433,8 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
         create_model({"model": "video_meta", "network_G": {
             "which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RBs": 1,
             "back_RBs": 1, "dtype": "bfloat16"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed.*multi-device"):
-        train_cli.main(["-opt", "unused.yml", "--launcher", "pytorch"])
+    with pytest.raises(ValueError, match="--launcher 'slurm': expected one of"):
+        train_cli.main(["-opt", "unused.yml", "--launcher", "slurm"])
     tiled = VideoBaseModel({"network_G": {"which_model_G": "EDVR", "nf": 8, "nframes": 3,
                                           "groups": 2, "front_RBs": 1, "back_RBs": 1},
                             "eval": {"tile": 64}}, device="cpu")
@@ -441,10 +442,10 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
     from dynavsr_tpu_torch.cli import test_dynavsr as dynavsr_cli
 
     yml = tmp_path / "clip_parallel.yml"
-    yml.write_text("name: cp\nscale: 4\nnetwork_G: {which_model_G: EDVR}\n"
+    yml.write_text("name: cp\nscale: 4\nn_devices: 2\nnetwork_G: {which_model_G: EDVR}\n"
                    "adapt: {clip_parallel: true}\n")
     pytest.importorskip("yaml")
-    with pytest.raises(NotImplementedError, match="clip_parallel.*multi-device"):
+    with pytest.raises(ValueError, match="n_devices is 2, but the launcher started 1 rank"):
         dynavsr_cli.main(["-opt", str(yml), "--device", "cpu"])
 
 
