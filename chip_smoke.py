@@ -32,8 +32,14 @@ Phases; any failure raises and exits non-zero:
               grad flow, grad flow + grad x, each gradient with T in the
               same launch (warp_bwd_tangent), against grid_sample_ref's
               *_tangent_ref at TOF's meta shapes (8 frames of 64x64 and
-              256x256), white-noise flows N(0, 4^2) px and tangents
-              (correctness checks, not timed);
+              256x256), white-noise flows N(0, 4^2) px and tangents;
+              K8 dcn_fwd_tangent, K9 dcn_bwd_weight_tangent and K10
+              dcn_bwd_data_tangent against ops/dcn_ref.py's *_tangent_ref
+              in fp32 (1e-4) and bf16 (against the formulas with bf16
+              tangent columns and weights, K1-K3's bf16 bounds: K8 2^-8,
+              K9 / K10 2^-8 + 1e-4) at the meta inner steps' calls, Gd 8:
+              EDVR-M's 40 x 64 x {16, 8, 4}^2 (10c) and EDVR-L's 10 x 128
+              x {8, 4, 2}^2 (15c) (correctness checks, not timed);
   4. main     the DynaVSR adapt-and-infer loop at full EDVR-M x4 + MFDN
               width (configs/test/test_DynaVSR_Vid4.yml), random weights
               from a seed, on a synthetic 16-frame 144x176 clip, through
@@ -230,6 +236,37 @@ Phases; any failure raises and exits non-zero:
               1e-5 of that one-process split gradient; the launches a rank;
               every K1-K3 (K8-K10) call against the plain version, each call
               shape timed on rank 0. Prints a `[multi] {json}` line.
+ 15. edvr_l   EDVR-L (train_EDVR_L_REDS.yml's network_G: nf 128, 5 frames,
+              Gd 8, 5 + 40 blocks, TSA, bf16) through the entry points,
+              random weights from the seed: 15a run_clip adapt-and-infer on
+              phase 4's clip with phase 4's MFDN (s/clip, peak memory; K1-K3
+              launches equal to phase 4's bf16 EDVR-M clip's); 15b
+              cli/train.train with train_EDVR_L_REDS.yml's fields on phase
+              9's REDS LMDB, 3 updates at the global batch 32 (K1 = K2 = K3
+              = 4 an update); 15c second-order meta-training through
+              cli/train.train (cli/train_dynavsr's path) with
+              train_DynaVSR_EDVR_REDS.yml's fields and EDVR-L's network_G at
+              tools/edvr_l_step_check.py's shapes (batch 2, GT 128: SLR 8,
+              LR 32, HR 128), 10c's 5-frame MFDN in the loop, 3 updates
+              resumed from update 2 bitwise; 15d 10c's EDVR-M and 11b's
+              DUF-16L meta-trained in bf16 (4 updates each), s/update beside
+              phases 10 / 11's fp32 figures. In 15c and 15d: the launches
+              of every update equal the CPU counts (K1 28, K2 24, K3 20,
+              K8-K10 4; DUF K6 5, K7 3); every kernel call of one update
+              against its plain version in bf16 (phase 3's bf16 bounds;
+              DUF's grad filters 2^-7); the bf16 second-order term of the
+              meta gradient, at the first alpha in 1e-3..1000 where the
+              float64 term is at least half the gradient (below that the
+              bf16 terms' own rounding swamps them), gauged against that
+              float64 evaluation of the plain ops (second_order_term: the
+              kernels' term within 4 x the plain bf16 term's distance from
+              float64 + 0.1, a bf16 gradient's own distance), offsets
+              redrawn N(0, 0.05) for EDVR, with the meta loss's Charbonnier
+              eps at 1e-4 (at the configs' 1e-12 its curvature near a zero
+              residual makes the bf16 term a lottery of which pixels
+              rounding puts there; that reading is reported); the bf16 K8-K10 calls of a 15c
+              update timed (the kernels line's bf16 entries). Prints an
+              `[edvr_l] {json}` line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -237,7 +274,9 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -758,8 +797,46 @@ def duf_against_plain(label, x, f, cot, need_x, timed):
     return rows
 
 
+# K8-K10's calls in a meta update's inner step, Gd 8: EDVR-M's (10c: 40 SLR
+# frames x 64 channels at the pyramid's 16x16, 8x8 and 4x4) and EDVR-L's (15c:
+# 10 frames x 128 channels at 8x8, 4x4 and 2x2).
+META_TANGENT_SHAPES = ((40, 64, 16, 16), (40, 64, 8, 8), (40, 64, 4, 4), (10, 128, 8, 8),
+                       (10, 128, 4, 4), (10, 128, 2, 2))
+
+
+def tangent_against_plain(shape, gd, dtype, gen) -> None:
+    """K8-K10 against their plain formulas on the same inputs (white-noise
+    offsets as dcn_inputs', N(0, 1) offset cotangents and grad_out), x
+    channels-last as the autograd hands it over; call_tol's bounds (fp32
+    1e-4; bf16 against the formulas with bf16 tangent columns and
+    weights)."""
+    x, offset, mask, weight, _, _ = dcn_inputs(shape, gd, dtype, gen)
+    cot = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    coff = torch.randn(offset.shape, generator=gen, device="cuda").to(dtype)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    args = {"dcn_fwd_tangent": (x_cl, offset, mask, weight, coff, gd),
+            "dcn_bwd_weight_tangent": (x_cl, offset, mask, cot, coff, gd),
+            "dcn_bwd_data_tangent": (x_cl, offset, mask, weight, cot, coff, gd)}
+    label = dcn_label("meta", shape)
+    for name, a in args.items():
+        out = getattr(dcn, name)(*a)
+        got = [out] if torch.is_tensor(out) else [t for t in out if t is not None]
+        want = PLAIN_DCN_CALLS[name](*a)
+        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+        tol = call_tol(name, a) * max(float(w.abs().max()) for w in want)
+        ok = len(got) == len(want) and all(g.dtype == dtype for g in got) and err <= tol
+        line = (f"{name:22s} {label} Gd={gd} {str(dtype)[6:]:8s} max|err| {err:.3e} "
+                f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        print(f"[kernel] {line}")
+        check(ok, line)
+
+
 def phase_kernels() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for shape in META_TANGENT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tangent_against_plain(shape, 8, dtype, gen)
+    torch.cuda.empty_cache()
     for shape_name, shape in DCN_SHAPES.items():
         for gd in (8, 2, 1):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1589,10 +1666,10 @@ def train_opt(run: dict, gt: str, lq: str, root: str, resume: str = None) -> dic
         "datasets": {"train": {
             "name": "REDS", "mode": "REDS", "interval_list": [1], "random_reverse": False,
             "dataroot_GT": gt, "dataroot_LQ": lq, "N_frames": 5, "use_shuffle": True,
-            "n_workers": 3, "batch_size": 32, "GT_size": 256, "LQ_size": 64,
+            "n_workers": 3, "batch_size": run.get("batch", 32), "GT_size": 256, "LQ_size": 64,
             "use_flip": True, "use_rot": True}},
-        "network_G": {**EDVR_M, "groups": run["groups"], "predeblur": False, "HR_in": False,
-                      **({"dtype": run["dtype"]} if run["dtype"] else {})},
+        "network_G": {**run.get("net", EDVR_M), "groups": run["groups"], "predeblur": False,
+                      "HR_in": False, **({"dtype": run["dtype"]} if run["dtype"] else {})},
         "path": {"pretrain_model_G": None, "strict_load": True, "resume_state": resume},
         "train": {"lr_G": 4e-4, "lr_scheme": "CosineAnnealingLR_Restart", "beta1": 0.9,
                   "beta2": 0.99, "niter": run["niter"], "warmup_iter": -1,
@@ -1827,8 +1904,9 @@ TANGENT_KERNELS = ("dcn_fwd_tangent", "dcn_bwd_weight_tangent", "dcn_bwd_data_ta
 TANGENT_RTOL = {"dcn_fwd_tangent": 0.0, "dcn_bwd_weight_tangent": 1e-5,
                 "dcn_bwd_data_tangent": (1e-5, 0.0, 0.0)}
 # K1-K3 and K8-K10 a meta update (4 DCNs in PCD; the inner forward is
-# recomputed twice under remat): the count the CPU test
-# test_torch_port_meta.py::test_meta_update_launches_with_the_kernels_stand_ins holds.
+# recomputed twice under remat), in fp32 and bf16: the count the CPU tests
+# test_torch_port_meta.py::test_meta_update_launches_with_the_kernel_stand_ins
+# and test_torch_port_bf16_second_order.py hold.
 META_LAUNCHES = {"dcn_fwd": 28, "dcn_bwd_data": 24, "dcn_bwd_weight": 20,
                  "dcn_fwd_tangent": 4, "dcn_bwd_weight_tangent": 4, "dcn_bwd_data_tangent": 4}
 # Searched for an alpha whose second-order term is >= 5 % of the meta
@@ -1888,25 +1966,27 @@ def downscaler_opt(which: str, niter: int, save, gt: str, root: str, frames: int
 
 
 def meta_opt(gt: str, est: str, root: str, resume: str = None,
-             name: str = "DynaVSR_EDVR_M_REDS") -> dict:
+             name: str = "DynaVSR_EDVR_M_REDS", net: dict = None, gt_size: int = 256,
+             batch: int = META_BATCH, niter: int = META_NITER, save=META_SAVE) -> dict:
     """train_DynaVSR_EDVR_REDS.yml as cli/train.py derives it, from random
-    weights (no EDVR checkpoint in the repo) with network_E from `est`."""
+    weights (no EDVR checkpoint in the repo) with network_E from `est`;
+    `net` replaces its network_G (EDVR-M), as phase 15 puts EDVR-L's in."""
     from dynavsr_tpu_torch.config.options import derive
 
     opt = {
         "name": name, "model": "video_meta", "scale": SCALE,
         "datasets": {"train": {"name": "REDS_meta", "mode": "meta", "dataroot_GT": gt,
-                               "N_frames": 5, "GT_size": 256, "use_shuffle": True,
-                               "n_workers": 3, "batch_size": META_BATCH}},
-        "network_G": {**EDVR_M, "predeblur": False, "HR_in": False},
+                               "N_frames": 5, "GT_size": gt_size, "use_shuffle": True,
+                               "n_workers": 3, "batch_size": batch}},
+        "network_G": {**(net or EDVR_M), "predeblur": False, "HR_in": False},
         "network_E": {"which_model_G": "MFDN", "nf": 64},
         "path": {"pretrain_model_G": None, "strict_load": True, "resume_state": resume,
                  "pretrain_model_E": est},
         "train": {"lr_G": 1e-5, "lr_scheme": "constant", "beta1": 0.9, "beta2": 0.99,
-                  "niter": META_NITER, "maml_lr_alpha": 1e-5, "maml_adapt_iter": 1,
+                  "niter": niter, "maml_lr_alpha": 1e-5, "maml_adapt_iter": 1,
                   "first_order": False, "pixel_criterion": "cb", "pixel_weight": 1.0,
                   "val_freq": 5e3, "manual_seed": 0},
-        "logger": {"print_freq": 1, "save_checkpoint_freq": META_SAVE},
+        "logger": {"print_freq": 1, "save_checkpoint_freq": save or 5e3},
     }
     return derive(opt, is_train=True, root=root)
 
@@ -1965,16 +2045,37 @@ def trained_model(opt: dict):
                                          "pretrain_model_G": final}})
 
 
+def _cd(x):
+    """The plain version's compute dtype for a kernel call on x: bf16
+    columns and weights for a bf16 call (the kernels' own function), else
+    fp32."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else None
+
+
+def _f32(*ts):
+    return [t.float() if torch.is_tensor(t) else t for t in ts]
+
+
 def _dcn_vjp(x, offset, mask, weight, cot, gd, wrt):
     """The plain DCN's gradients in the inputs `wrt` (indices into (x,
-    offset, mask, weight)), in fp32."""
+    offset, mask, weight)), in fp32 (bf16 columns and weights for bf16
+    inputs)."""
     with torch.enable_grad():
         leaves = [None if t is None else t.detach().float().requires_grad_()
                   for t in (x, offset, mask, weight)]
-        out = deform_conv2d_ref(*leaves, deformable_groups=gd)
+        out = deform_conv2d_ref(*leaves, deformable_groups=gd, compute_dtype=_cd(x))
         grads = torch.autograd.grad(out, [leaves[i] for i in wrt if leaves[i] is not None],
                                     cot.float())
     return list(grads)
+
+
+def _tangent_plain(ref):
+    """A K8-K10 plain formula on a wrapper's own arguments, in fp32 (with
+    bf16 tangent columns and weights for bf16 inputs); its non-None outputs."""
+    def call(*args):
+        out = ref(*_f32(*args), compute_dtype=_cd(args[0]))
+        return [out] if torch.is_tensor(out) else [t for t in out if t is not None]
+    return call
 
 
 # The plain version of each K1-K3, K8-K10 wrapper, on its own arguments: the
@@ -1982,26 +2083,47 @@ def _dcn_vjp(x, offset, mask, weight, cot, gd, wrt):
 # channels-last copy of x, which is not compared).
 PLAIN_DCN_CALLS = {
     "_fwd": lambda x, offset, mask, weight, bias, gd: [deform_conv2d_ref(
-        x.float(), offset, mask, weight, bias, deformable_groups=gd)],
+        *_f32(x, offset, mask, weight, bias), deformable_groups=gd, compute_dtype=_cd(x))],
     "dcn_bwd_data": lambda x, offset, mask, weight, cot, gd: _dcn_vjp(
         x, offset, mask, weight, cot, gd, (0, 1, 2)),
     "dcn_bwd_weight": lambda x, offset, mask, cot, gd: _dcn_vjp(
         x, offset, mask, torch.zeros(cot.shape[1], x.shape[1], 3, 3, device=x.device), cot,
         gd, (3,)),
-    "dcn_fwd_tangent": lambda *a: [dcn_fwd_tangent_ref(*a)],
-    "dcn_bwd_weight_tangent": lambda *a: [dcn_bwd_weight_tangent_ref(*a)],
-    "dcn_bwd_data_tangent": lambda *a: [t for t in dcn_bwd_data_tangent_ref(*a)
-                                        if t is not None],
+    "dcn_fwd_tangent": _tangent_plain(dcn_fwd_tangent_ref),
+    "dcn_bwd_weight_tangent": _tangent_plain(dcn_bwd_weight_tangent_ref),
+    "dcn_bwd_data_tangent": _tangent_plain(dcn_bwd_data_tangent_ref),
 }
+# A bf16 kernel call against its plain version with bf16 columns and
+# weights, relative to the plain result's largest value (phase 3's bounds):
+# the final rounding (K1, K8), and the fp32 tolerance besides for the order
+# in which atomics sum (K2, K3, K9, K10).
+BF16_TOL = {"dcn_fwd": 2.0 ** -8, "dcn_bwd_data": 2.0 ** -8 + 1e-4,
+            "dcn_bwd_weight": 2.0 ** -8 + 1e-4, "dcn_fwd_tangent": 2.0 ** -8,
+            "dcn_bwd_weight_tangent": 2.0 ** -8 + 1e-4, "dcn_bwd_data_tangent": 2.0 ** -8 + 1e-4}
+
+
+def call_tol(name: str, args) -> float:
+    """checked_calls' bound for a call of wrapper `name`, relative to the
+    plain result's largest value: 1e-4 for fp32 operands (the same fp32
+    arithmetic in another order); for bf16 operands BF16_TOL (K1-K3,
+    K8-K10), and for K7 with bf16 filters 2^-7 (its grad filters rounded to
+    bf16, where the plain version keeps fp32: half a bf16 step, with
+    margin)."""
+    name = "dcn_fwd" if name == "_fwd" else name
+    if not any(torch.is_tensor(a) and a.dtype == torch.bfloat16 for a in args):
+        return 1e-4
+    if name in BF16_TOL:
+        return BF16_TOL[name]
+    return 2.0 ** -7 if name == "duf_bwd" else 1e-4
 
 
 def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False) -> tuple:
     """Run `run()` with every call of `module`'s wrappers named in `plain`
     held against plain[name] on the same inputs as it happens (phase 3's
-    tolerance: 1e-4 of the plain result's largest value); returns one row a
-    call, and the arguments of the largest call of each wrapper in `keep`
-    (with `by_shape`, of its first call at each input shape, keyed (name,
-    shape))."""
+    tolerances, call_tol: 1e-4 of the plain result's largest value in
+    fp32); returns one row a call, and the arguments of the largest call of
+    each wrapper in `keep` (with `by_shape`, of its first call at each input
+    shape, keyed (name, shape))."""
     rows, kept = [], {}
     orig = {n: getattr(module, n) for n in plain}
 
@@ -2012,11 +2134,12 @@ def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False) -> 
             got = [out] if torch.is_tensor(out) else [t for t in out if t is not None]
             with torch.no_grad():
                 want = plain[name](*args)
-            err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
             scale = max(float(w.abs().max()) for w in want)
+            tol = call_tol(name, args) * scale
             rows.append(dict(name="dcn_fwd" if name == "_fwd" else name,
-                             dims=list(args[0].shape), max_abs_err=err, tol=1e-4 * scale,
-                             ok=err <= 1e-4 * scale))
+                             dims=list(args[0].shape), dtype=str(args[0].dtype)[6:],
+                             max_abs_err=err, tol=tol, ok=err <= tol))
             key = (name, tuple(args[0].shape)) if by_shape else name
             if name in keep and (key not in kept or (
                     not by_shape and args[0].numel() > kept[key][0].numel())):
@@ -2048,13 +2171,52 @@ def meta_gradient(model, batch, alpha: float, first_order: bool) -> torch.Tensor
                       for g, t in zip(grads, leaves.values())])
 
 
+def float64_net(net: torch.nn.Module) -> torch.nn.Module:
+    """A float64 copy of net with every compute dtype cleared, so that a
+    bf16 net's convs and filter head run in float64 too: the gauge's
+    evaluation of the same function without rounding."""
+    m = copy.deepcopy(net).double()
+    for mod in m.modules():
+        if getattr(mod, "compute_dtype", None) is not None:
+            mod.compute_dtype = None
+        if isinstance(getattr(mod, "dtype", None), torch.dtype):
+            mod.dtype = None
+    return m
+
+
+@contextlib.contextmanager
+def f64_context(model, batch, swap, on: bool):
+    """(model, batch) as they are, or (`on`) a float64 copy of both with
+    the plain op of `swap` in place of the kernels' (restored after)."""
+    if not on:
+        yield model, batch
+        return
+    module, attr, plain_fn = swap
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain_fn)
+    try:
+        yield (types.SimpleNamespace(netG=float64_net(model.netG)),
+               {k: v.double() for k, v in batch.items()})
+    finally:
+        setattr(module, attr, kernel_fn)
+
+
+def plain_dcn(x, offset, mask, weight, bias=None, deformable_groups=1):
+    """The plain DCN as the port's CPU path runs it: bf16 columns and
+    weights for a bf16 x, float64 for a float64 x."""
+    return deform_conv2d_ref(x, offset, mask, weight, bias, deformable_groups=deformable_groups,
+                             compute_dtype=x.dtype)
+
+
 def term_vs_plain(model, batch, alpha: float, swap, gauge: bool = False) -> dict:
     """The second-order part of the meta gradient (second minus first
     order) at `alpha`, with the kernels and with the plain op (`swap` =
     (module, attribute, plain function)): its share of the gradient, the
     relative norm of their difference, their cosine. With `gauge`, also the
     plain op's term on a float64 copy of the net and batch, and each fp32
-    term's distance to it (`plain_vs_f64`, `kernel_vs_f64`)."""
+    term's distance to it (`plain_vs_f64`, `kernel_vs_f64`), read beside
+    the float64 term's share and the first-order gradients' distance
+    (reported, not held)."""
     g1, g2 = meta_gradient(model, batch, alpha, True), meta_gradient(model, batch, alpha, False)
     module, attr, plain_fn = swap
     kernel_fn = getattr(module, attr)
@@ -2063,9 +2225,10 @@ def term_vs_plain(model, batch, alpha: float, swap, gauge: bool = False) -> dict
         p1, p2 = (meta_gradient(model, batch, alpha, True),
                   meta_gradient(model, batch, alpha, False))
         if gauge:
-            m64 = types.SimpleNamespace(netG=copy.deepcopy(model.netG).double())
+            m64 = types.SimpleNamespace(netG=float64_net(model.netG))
             b64 = {k: v.double() for k, v in batch.items()}
-            d64 = meta_gradient(m64, b64, alpha, False) - meta_gradient(m64, b64, alpha, True)
+            g64 = meta_gradient(m64, b64, alpha, False)
+            d64 = g64 - meta_gradient(m64, b64, alpha, True)
             del m64
     finally:
         setattr(module, attr, kernel_fn)
@@ -2076,24 +2239,27 @@ def term_vs_plain(model, batch, alpha: float, swap, gauge: bool = False) -> dict
                grad_rel_diff=float((g2 - p2).norm() / p2.norm()))
     if gauge:
         out.update(plain_vs_f64=float((d_plain.double() - d64).norm() / d64.norm()),
-                   kernel_vs_f64=float((d_kernel.double() - d64).norm() / d64.norm()))
+                   kernel_vs_f64=float((d_kernel.double() - d64).norm() / d64.norm()),
+                   share_f64=float(d64.norm() / g64.norm()),
+                   first_rel_diff=float((g1 - p1).norm() / p1.norm()))
     return out
 
 
-def gauge_verdict(readings: list) -> tuple:
+def gauge_verdict(readings: list, floor: float = GAUGE_FLOOR) -> tuple:
     """(the first well-conditioned try or None, the failures) of gauged
     term readings (term_vs_plain with gauge): on every try the kernels'
     term within GAUGE_FACTOR x the plain term's distance from float64 plus
-    GAUGE_FLOOR; on a try whose plain term is within GAUGE of float64 the
-    kernels within 1e-2 of the plain term. A try where neither fp32 term is
-    near float64 says nothing of the kernels and fails nothing."""
+    `floor` (GAUGE_FLOOR for fp32 terms); on a try whose plain term is
+    within GAUGE of float64 the kernels within 1e-2 of the plain term. A
+    try where neither fp32 term is near float64 says nothing of the kernels
+    and fails nothing."""
     bad = []
     for i, r in enumerate(readings, 1):
-        limit = GAUGE_FACTOR * r["plain_vs_f64"] + GAUGE_FLOOR
+        limit = GAUGE_FACTOR * r["plain_vs_f64"] + floor
         if not r["kernel_vs_f64"] <= limit:  # a NaN fails too
             bad.append(f"try {i}: the kernels' term is {r['kernel_vs_f64']:.3e} from float64, "
                        f"more than {GAUGE_FACTOR} x the plain term's {r['plain_vs_f64']:.3e} "
-                       f"+ {GAUGE_FLOOR}")
+                       f"+ {floor}")
         if r["plain_vs_f64"] <= GAUGE and not r["rel_diff"] <= 1e-2:
             bad.append(f"try {i}: the plain term is within {GAUGE} of float64 and the "
                        f"kernels' differs from it by {r['rel_diff']:.3e} > 1e-2")
@@ -2102,10 +2268,14 @@ def gauge_verdict(readings: list) -> tuple:
 
 
 def second_order_term(tag: str, model, batch, gen: torch.Generator, swap, redraw=None,
-                      std: float = 0.0, tries: int = 1) -> dict:
+                      std: float = 0.0, tries: int = 1, share: float = TERM_SHARE,
+                      alphas=ALPHAS, floor: float = GAUGE_FLOOR, by_f64: bool = False) -> dict:
     """The check of the second-order term as a whole, kernels against the
-    plain op (`swap`; relative norm <= 1e-2), at the first alpha of ALPHAS
-    whose term is >= TERM_SHARE of the meta gradient. With `redraw` (a
+    plain op (`swap`; relative norm <= 1e-2), at the first alpha of `alphas`
+    whose term is >= `share` of the meta gradient (with `by_f64`, of the
+    plain op's meta gradient on a float64 copy: a bf16 term's own share is
+    inflated by its rounding, so it may pick an alpha whose term is mostly
+    that rounding). With `redraw` (a
     predicate on parameter names) it runs with those parameters redrawn
     N(0, std) from the seed: a trained-from-zero DCN offset conv or a
     near-zero SpyNet flow puts the bilinear samples on the pixel grid,
@@ -2137,21 +2307,22 @@ def second_order_term(tag: str, model, batch, gen: torch.Generator, swap, redraw
             for p in redrawn.values():
                 p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
         ratios, alpha = {}, None
-        for a in (1e-5,) + ALPHAS:
-            g1, g2 = meta_gradient(model, sub, a, True), meta_gradient(model, sub, a, False)
-            ratios[a] = float((g2 - g1).norm() / g2.norm())
-            if a > 1e-5 and ratios[a] >= TERM_SHARE and math.isfinite(ratios[a]):
-                alpha = a
-                break
+        with f64_context(model, sub, swap, by_f64) as (m, b):
+            for a in (1e-5,) + tuple(alphas):
+                g1, g2 = meta_gradient(m, b, a, True), meta_gradient(m, b, a, False)
+                ratios[a] = float((g2 - g1).norm() / g2.norm())
+                if a > 1e-5 and ratios[a] >= share and math.isfinite(ratios[a]):
+                    alpha = a
+                    break
         check(alpha is not None,
-              f"{tag}: no alpha gives a second-order term >= {TERM_SHARE}: {ratios}")
+              f"{tag}: no alpha gives a second-order term >= {share}: {ratios}")
         reading = term_vs_plain(model, sub, alpha, swap, gauge=tries > 1)
         reading.update(ratios=ratios, windows=next(iter(sub.values())).shape[0])
         readings.append(reading)
         if tries == 1 or reading["plain_vs_f64"] <= GAUGE:
             held = reading
             break
-    bad = gauge_verdict(readings)[1] if tries > 1 else []
+    bad = gauge_verdict(readings, floor)[1] if tries > 1 else []
     with torch.no_grad():
         for n, p in redrawn.items():
             p.copy_(own[n])
@@ -2160,9 +2331,13 @@ def second_order_term(tag: str, model, batch, gen: torch.Generator, swap, redraw
     what = f"{len(redrawn)} tensors redrawn N(0, {std})" if redrawn else "its own weights"
     gauges = [f"{r.get('plain_vs_f64', math.nan):.2e}" for r in readings]
     kernels = [f"{r.get('kernel_vs_f64', math.nan):.2e}" for r in readings]
+    each = [f"alpha {r['alpha']} (term {r['share']:.2e} of the gradient, float64's "
+            f"{r.get('share_f64', math.nan):.2e}; kernels vs plain {r['rel_diff']:.2e}, "
+            f"gradients {r['grad_rel_diff']:.2e}, first order "
+            f"{r.get('first_rel_diff', math.nan):.2e})" for r in readings]
     gauged = (f"; {len(readings)} tries, fp32 vs float64: plain {gauges} (gauge {GAUGE}), "
-              f"kernels {kernels} (limit {GAUGE_FACTOR} x plain + {GAUGE_FLOOR})"
-              ) if tries > 1 else ""
+              f"kernels {kernels} (limit {GAUGE_FACTOR} x plain + {floor}); tries at "
+              f"{each}") if tries > 1 else ""
     own_text = (f"; with the trained weights (samples on the grid's kinks): term "
                 f"{on_grid['share']:.3e} of the gradient, |diff|/|term| "
                 f"{on_grid['rel_diff']:.3e}, cosine {on_grid['cosine']:.6f}") if redrawn else ""
@@ -2181,20 +2356,56 @@ def second_order_term(tag: str, model, batch, gen: torch.Generator, swap, redraw
                 tries=readings, held=held is not None)
 
 
-def tangent_bound(name, shape, gd):
-    """(bound_ms, bound_by, bytes, flops) of one fp32 K8-K10 call: each
-    input read once, each output written once; operations = the 2*B*HW*C*
-    Cout*9 product (gc for K10)."""
+def tangent_bound(name, shape, gd, dtype=torch.float32):
+    """(bound_ms, bound_by, bytes, flops) of one K8-K10 call: each input
+    read once, each output written once, in `dtype`; operations = the
+    2*B*HW*C*Cout*9 product (gc for K10) at the dtype's peak."""
     b, c, h, w = shape
-    px, e = b * h * w, 4
+    px, e = b * h * w, torch.finfo(dtype).bits // 8
     x, off, msk, wgt, go = px * c * e, px * 2 * gd * 9 * e, px * gd * 9 * e, c * c * 9 * e, \
         px * c * e
     nbytes = x + 2 * off + msk + {"dcn_fwd_tangent": wgt + px * c * e,
                                   "dcn_bwd_weight_tangent": go + wgt,
                                   "dcn_bwd_data_tangent": wgt + go + x + off + msk}[name]
     flops = 2 * px * c * c * 9
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+# Graph replays of the K8-K10 wrappers (wrapper_times' rtol): K8 and K10's
+# offset / mask gradients bitwise; K9 and K10's grad x sum with fp32 atomics,
+# within 1e-5 of the largest value, in bf16 then rounded once (2^-7).
+TANGENT_RTOL_BF16 = {"dcn_fwd_tangent": 0.0, "dcn_bwd_weight_tangent": 2.0 ** -7,
+                     "dcn_bwd_data_tangent": (2.0 ** -7, 0.0, 0.0)}
+
+
+def tangent_rows(keep: dict, smi: str) -> list:
+    """Each kept K8-K10 call ((name, shape) -> its arguments) checked
+    against its plain version and timed (wrapper_times, the plain version,
+    the bound in the call's dtype), largest shape first."""
+    rows = []
+    for name, shape in sorted(keep, key=lambda k: (TANGENT_KERNELS.index(k[0]), -k[1][2])):
+        args = keep[(name, shape)]
+        gd, dtype = args[-1], args[0].dtype
+        fn, plain = getattr(dcn, name), PLAIN_DCN_CALLS[name]
+        bound_ms, bound_by, nbytes, flops = tangent_bound(name, shape, gd, dtype)
+        out = fn(*args)
+        got = [out] if torch.is_tensor(out) else [t for t in out if t is not None]
+        want = plain(*args)
+        err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+        rtol = (TANGENT_RTOL if dtype == torch.float32 else TANGENT_RTOL_BF16)[name]
+        t = wrapper_times(lambda: fn(*args), bound_ms, rtol=rtol)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+        label = dcn_label("meta", shape)
+        row = dict(name=name, label=label, dims=list(shape), gd=gd, dtype=str(dtype)[6:],
+                   max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   flops=flops, plain_ms=plain_ms, library_ms=None, **t)
+        rows.append(row)
+        print(f"[timing] {name:22s} {label} Gd={gd} {row['dtype']} max|err| {err:.3e}  "
+              f"{times_text(row)}  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms "
+              f"({bound_by})  roofline {row['roofline']:.1%} (kernel "
+              f"{row['kernel_roofline']:.1%})  [{smi}]")
+    return rows
 
 
 def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple:
@@ -2289,36 +2500,9 @@ def phase_meta(smi: str, gen: torch.Generator, reds_gt: str, root: str) -> tuple
           f"10d: calls a meta update {by_kernel}")
     out["10d"] = dict(calls=len(calls), by_kernel=by_kernel)
 
-    rows = []
     # Each K8-K10 call size of the meta update: the inner step's pyramid
     # levels, 40 SLR frames of 16x16 (L1 and the cascade), 8x8 and 4x4.
-    for name, shape in sorted(keep, key=lambda k: (TANGENT_KERNELS.index(k[0]), -k[1][2])):
-        args = keep[(name, shape)]
-        gd = args[-1]
-        fn = {"dcn_fwd_tangent": dcn.dcn_fwd_tangent,
-              "dcn_bwd_weight_tangent": dcn.dcn_bwd_weight_tangent,
-              "dcn_bwd_data_tangent": dcn.dcn_bwd_data_tangent}[name]
-        ref = {"dcn_fwd_tangent": dcn_fwd_tangent_ref,
-               "dcn_bwd_weight_tangent": dcn_bwd_weight_tangent_ref,
-               "dcn_bwd_data_tangent": dcn_bwd_data_tangent_ref}[name]
-        bound_ms, bound_by, nbytes, flops = tangent_bound(name, shape, gd)
-        got = fn(*args)
-        want = ref(*args)
-        got = [got] if torch.is_tensor(got) else [t for t in got if t is not None]
-        want = [want] if torch.is_tensor(want) else [t for t in want if t is not None]
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        # Graph replays: K8 and K10's offset / mask gradients bitwise, grad x
-        # (K10) and K9 by atomics within 1e-5.
-        t = wrapper_times(lambda: fn(*args), bound_ms, rtol=TANGENT_RTOL[name])
-        plain_ms = cuda_ms(lambda: ref(*args), reps=3, warmup=1)
-        label = dcn_label("meta", shape)
-        row = dict(name=name, label=label, dims=list(shape), gd=gd, dtype="float32",
-                   max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=flops, plain_ms=plain_ms, library_ms=None, **t)
-        rows.append(row)
-        print(f"[timing] {name:22s} {label} Gd={gd} max|err| {err:.3e}  {times_text(row)}  "
-              f"plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})  roofline "
-              f"{row['roofline']:.1%} (kernel {row['kernel_roofline']:.1%})  [{smi}]")
+    rows = tangent_rows(keep, smi)
     del calls, keep
     torch.cuda.empty_cache()
 
@@ -2370,27 +2554,30 @@ META2_LAUNCHES = {"11a": {"warp_fwd": 120, "warp_bwd": 72, "warp_fwd_tangent": 0
 SPY_BIAS_STD = 0.1  # SpyNet blocks' last-conv biases for 11c's off-grid term check
 
 
-def meta2_opt(tag: str, gt: str, est: str, root: str, resume: str = None) -> dict:
+def meta2_opt(tag: str, gt: str, est: str, root: str, resume: str = None, dtype: str = None,
+              niter: int = META_NITER, save=META_SAVE) -> dict:
     """train_DynaVSR_TOF_Vimeo90K.yml / train_DynaVSR_DUF_Vimeo90K.yml as
     cli/train.py derives them, from random weights (the configs'
-    checkpoints are not in the repo) with network_E from `est`."""
+    checkpoints are not in the repo) with network_E from `est`; `dtype`
+    sets network_G's."""
     from dynavsr_tpu_torch.config.options import derive
 
     run = META2_RUNS[tag]
     opt = {
-        "name": run["name"], "model": "video_meta", "scale": SCALE,
+        "name": run["name"] + (f"_{dtype}" if dtype else ""), "model": "video_meta",
+        "scale": SCALE,
         "datasets": {"train": {"name": "Vimeo90K_meta", "mode": "meta", "dataroot_GT": gt,
                                "N_frames": VIMEO_T, "GT_size": 256, "use_shuffle": True,
                                "n_workers": 3, "batch_size": run["batch"]}},
-        "network_G": dict(run["net"]),
+        "network_G": {**run["net"], **({"dtype": dtype} if dtype else {})},
         "network_E": {"which_model_G": "MFDN", "nf": 64},
         "path": {"pretrain_model_G": None, "strict_load": True, "resume_state": resume,
                  "pretrain_model_E": est},
         "train": {"lr_G": 1e-5, "lr_scheme": "constant", "beta1": 0.9, "beta2": 0.99,
-                  "niter": META_NITER, "maml_lr_alpha": 1e-5, "maml_adapt_iter": 1,
+                  "niter": niter, "maml_lr_alpha": 1e-5, "maml_adapt_iter": 1,
                   "first_order": False, "pixel_criterion": "cb", "pixel_weight": 1.0,
                   "val_freq": 5e3, "manual_seed": 0},
-        "logger": {"print_freq": 1, "save_checkpoint_freq": META_SAVE},
+        "logger": {"print_freq": 1, "save_checkpoint_freq": save or 5e3},
     }
     return derive(opt, is_train=True, root=root)
 
@@ -3518,6 +3705,233 @@ def phase_multi(smi: str, edvr: dict, reds: tuple, est_5f: str, root: str) -> di
     return out
 
 
+# --------------------------------------------------------------- phase 15
+# EDVR-L through the entry points, bf16 everywhere its configs put it:
+# 15a adapt-and-infer, 15b supervised training, 15c second-order
+# meta-training (its K1-K3 and K8-K10 in bf16), 15d EDVR-M's and DUF-16L's
+# meta-training in bf16.
+EDVR_L = {"which_model_G": "EDVR", "nf": 128, "nframes": 5, "groups": 8, "front_RBs": 5,
+          "back_RBs": 40, "w_TSA": True, "dtype": "bfloat16"}  # train_EDVR_L_REDS.yml:39-48
+# 15b's global batch: the config's 32, halved where it does not fit the card.
+EDVR_L_BATCHES = (32, 16, 8)
+EDVR_L_NITER = 3  # 15b and 15c: update 3 is timed (1 and 2 warm up)
+# 15c: tools/edvr_l_step_check.py's meta step (batch 2, GT 128: SLR 8, LR 32),
+# resumed from the state saved at update 2.
+EDVR_L_META = dict(batch=2, gt_size=128, save=2)
+BF16_META_NITER = 4  # 15d: updates 3-4 timed
+TERM_TRIES = 2  # gauged tries of the bf16 second-order term (second_order_term)
+# The bf16 term is read where the float64 term is at least half the meta
+# gradient: there the bf16 terms' own rounding is small beside it. Where the
+# term is a few percent (the fp32 share), both bf16 terms, the kernels' and
+# the plain op's, were mostly rounding on the card (up to 70 x the float64
+# term), and their own share picked such alphas.
+BF16_TERM_SHARE = 0.5
+BF16_ALPHAS = ALPHAS + (100.0, 1000.0)
+# The bf16 terms' own floor in the gauge (GAUGE_FLOOR is fp32's): a bf16 meta
+# gradient lies a few 1e-2 from the exact one (the CPU test
+# test_torch_port_bf16_second_order.py measured the port's 3e-2 from fp32).
+BF16_GAUGE_FLOOR = 0.1
+# The meta loss of the bf16 term checks: Charbonnier with eps 1e-4 (its
+# curvature at most 1e2) in place of the configs' 1e-12 (up to 1e6 where a
+# residual is within 1e-5 of zero). The inner step's Hessian carries that
+# curvature, so at 1e-12 the term is dominated by whichever few pixels a
+# path's rounding puts next to zero: on the card, EDVR-L's bf16 term read
+# 0.16-0.17 from float64 for the kernels and the plain op alike on 4 of 5
+# draws and 24 for the kernels on the fifth (every kernel call of it
+# within its tolerance); at 1e-4 all 5 read 0.026-0.029 for both. The
+# configs' loss is read beside it and reported.
+TERM_CB_EPS = 1e-4
+
+
+@contextlib.contextmanager
+def meta_charbonnier(eps: float):
+    """train/meta.py's losses with Charbonnier's eps set to `eps`."""
+    from dynavsr_tpu_torch.train import meta as meta_module
+
+    orig = meta_module.charbonnier_loss
+    meta_module.charbonnier_loss = functools.partial(orig, eps=eps)
+    try:
+        yield
+    finally:
+        meta_module.charbonnier_loss = orig
+
+
+def bf16_meta_checks(tag: str, model, batch: dict, gen: torch.Generator, module, plain: dict,
+                     expect: dict, swap, redraw=None, std: float = 0.0, keep=()) -> tuple:
+    """One meta update of `model` with every kernel call of `module` held
+    against its plain version (call_tol's bf16 bounds) and the launches
+    against `expect`, then the bf16 second-order term gauged against a
+    float64 evaluation of the plain op (second_order_term with TERM_TRIES,
+    2 windows a try, at BF16_TERM_SHARE, the meta loss's Charbonnier at
+    TERM_CB_EPS), and the same reading with the configs' loss (reported).
+    Returns (readings, the kept calls)."""
+    model.feed_data(batch)
+    model.optimize_parameters()  # warm-up (builds the step)
+    calls, kept = checked_calls(model.optimize_parameters, module, plain, keep=keep,
+                                by_shape=True)
+    by_kernel = {}
+    for r in calls:
+        n, e = by_kernel.get(r["name"], (0, 0.0))
+        by_kernel[r["name"]] = (n + 1, max(e, r["max_abs_err"] / max(r["tol"], 1e-30)))
+    bad = [r for r in calls if not r["ok"]]
+    print(f"[edvr_l] {tag} one bf16 meta update's kernel calls vs plain: "
+          f"{ {k: f'{n} calls, worst {e:.3f} of tol' for k, (n, e) in by_kernel.items()} }")
+    check(not bad, f"{tag}: {len(bad)} calls off their plain version: {bad[:3]}")
+    called = {k: n for k, n in expect.items() if n}
+    check({k: n for k, (n, _) in by_kernel.items()} == called,
+          f"{tag}: calls a meta update {by_kernel}")
+    check(all(r["dtype"] == "bfloat16" for r in calls if r["name"] in TANGENT_KERNELS),
+          f"{tag}: a K8-K10 call was not in bf16")
+    del calls
+    torch.cuda.empty_cache()
+    nb = next(iter(batch.values())).shape[0]
+    term_batch = batch if redraw is None else {k: v[:2] for k, v in batch.items()}
+    with meta_charbonnier(TERM_CB_EPS):
+        term = second_order_term(f"edvr_l {tag}", model, term_batch, gen, swap, redraw, std,
+                                 tries=min(TERM_TRIES, nb // 2) if redraw is None else TERM_TRIES,
+                                 share=BF16_TERM_SHARE, alphas=BF16_ALPHAS,
+                                 floor=BF16_GAUGE_FLOOR, by_f64=True)
+    # The configs' loss at the same alpha and the model's own weights: reported.
+    configs = term_vs_plain(model, term_batch, term["alpha"], swap, gauge=True)
+    print(f"[edvr_l] {tag} with the configs' Charbonnier (eps 1e-12), its own weights, alpha "
+          f"{term['alpha']}: term {configs['share']:.3e} of the gradient (float64 "
+          f"{configs['share_f64']:.3e}), from float64: kernels {configs['kernel_vs_f64']:.3e}, "
+          f"plain {configs['plain_vs_f64']:.3e} (reported)")
+    return dict(calls={k: list(v) for k, v in by_kernel.items()}, term=term,
+                term_configs_loss=configs), kept
+
+
+def phase_edvr_l(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray, edvr: dict,
+                 main_results: dict, reds: tuple, meta: dict, meta2: dict, root: str) -> tuple:
+    """15a-15d; returns (measurements, the bf16 K8-K10 timing rows, 15c's
+    launches)."""
+    from dynavsr_tpu_torch.models.video_base_model import MetaModel, VideoBaseModel
+
+    out = {}
+    # 15a: EDVR-L adapt-and-infer on phase 4's clip with phase 4's MFDN.
+    vsr = define_G({"network_G": EDVR_L})
+    init_weights(vsr, gen)
+    cfg = AdaptConfig(n_steps=5, lr=1e-6, optimizer="adam", infer_chunk=INFER_CHUNK)
+
+    def clip():
+        return run_clip(vsr, edvr["est"], lq, None, cfg, seq=False, n_frames=EDVR_L["nframes"],
+                        padding="reflection", n_adapt=N_WINDOWS)
+
+    clip()  # warm-up: cuDNN plans at nf 128
+    reset_all_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sr, res = clip()
+    secs = time.perf_counter() - t0  # run_clip returns host arrays: synchronised
+    peak = torch.cuda.max_memory_allocated() - held
+    counts = {k: v for k, v in all_counts().items() if k in DCN_KERNELS}
+    losses = res["adapt_losses"]
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
+          f"15a: adaptation losses {losses}")
+    check(sr.shape == gt.shape and bool(np.isfinite(sr).all()), f"15a: SR {sr.shape}")
+    want = main_results["bf16-windows"]["counts"]
+    check(counts == want, f"15a: launches {counts}, phase 4's bf16 EDVR-M clip {want}")
+    out["15a"] = dict(s_per_clip=secs, frames_per_s=CLIP_T / secs, peak_gib=peak / 2**30,
+                      held_gib=held / 2**30, losses=losses, launches=counts,
+                      psnr=frame_psnr(sr, gt))
+    print(f"[edvr_l] 15a EDVR-L (nf 128, 5 + 40 blocks, Gd 8, bf16) + MFDN run_clip on "
+          f"{CLIP_T} frames of {LR_H}x{LR_W}: {secs:.3f} s/clip ({CLIP_T / secs:.2f} frames/s), "
+          f"peak {peak / 2**30:.2f} GiB above the {held / 2**30:.2f} held; losses "
+          f"{[f'{v:.6f}' for v in losses]}; launches {counts}  [{smi}]")
+    del vsr, sr
+    torch.cuda.empty_cache()
+
+    # 15b: supervised training, train_EDVR_L_REDS.yml's fields.
+    for batch in EDVR_L_BATCHES:
+        run = dict(name=f"EDVR_L_REDS_b{batch}", groups=8, dtype="bfloat16",
+                   restart_weights=[1, 1, 1], niter=EDVR_L_NITER, net=EDVR_L, batch=batch)
+        try:
+            m = train_and_resume("15b", lambda res, run=run: train_opt(run, *reds, root, res),
+                                 EDVR_L_NITER, None, VideoBaseModel,
+                                 per_update=dict.fromkeys(DCN_KERNELS, 4))
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"[edvr_l] 15b: a global batch of {batch} does not fit the card")
+            torch.cuda.empty_cache()
+    l_pix = [r["l_pix"] for r in m["recs"]]
+    check(all(math.isfinite(v) for v in l_pix), f"15b: l_pix {l_pix}")
+    out["15b"] = {k: v for k, v in m.items() if k not in ("opt", "recs", "first_batch")}
+    out["15b"].update(batch=batch, batch_cut_from=32, l_pix=l_pix,
+                      samples_per_s=batch / m["s_per_iter"])
+    print(f"[edvr_l] 15b EDVR-L supervised (global batch {batch} of the config's 32, 5 x 64^2 "
+          f"LQ -> 256^2): {EDVR_L_NITER} updates in {m['run_s']:.1f} s; update 3 "
+          f"{m['s_per_iter']:.4f} s ({batch / m['s_per_iter']:.2f} samples/s); loader wait "
+          f"{m['mean_data_wait_s'] * 1e3:.1f} ms; peak {m['peak_gib']:.2f} GiB above the "
+          f"{m['held_gib']:.2f} held; l_pix {[round(v, 5) for v in l_pix]}; launches an update "
+          f"{m['per_update']}  [{smi}]")
+    del m
+    torch.cuda.empty_cache()
+
+    # 15c: second-order meta-training of EDVR-L (train_dynavsr's path).
+    reds_gt, est_5f = reds[0], meta["est_5f"]
+    m = train_and_resume("15c", lambda res: meta_opt(
+        reds_gt, est_5f, root, res, name="DynaVSR_EDVR_L_REDS", net=EDVR_L,
+        gt_size=EDVR_L_META["gt_size"], batch=EDVR_L_META["batch"], niter=EDVR_L_NITER,
+        save=EDVR_L_META["save"]), EDVR_L_NITER, EDVR_L_META["save"], MetaModel,
+        per_update=META_LAUNCHES)
+    recs = m["recs"]
+    check(all(math.isfinite(r[k]) for r in recs for k in ("l_outer", "l_inner", "grad_norm")),
+          f"15c: {recs}")
+    launches = m["launches"]
+    out["15c"] = {k: v for k, v in m.items() if k not in ("opt", "recs", "first_batch")}
+    out["15c"].update(l_outer=[r["l_outer"] for r in recs],
+                      grad_norm=[r["grad_norm"] for r in recs])
+    print(f"[edvr_l] 15c EDVR-L meta (batch 2 x 5, SLR 8^2 / LR 32^2 / HR 128^2, alpha 1e-5, "
+          f"second order, bf16, MFDN in the loop): {EDVR_L_NITER} updates in {m['run_s']:.1f} s; "
+          f"update 3 {m['s_per_iter']:.4f} s; peak {m['peak_gib']:.2f} GiB above the "
+          f"{m['held_gib']:.2f} held; l_outer {out['15c']['l_outer']}; resumed at "
+          f"{EDVR_L_META['save']} bitwise; launches an update {m['per_update']}  [{smi}]")
+    model = trained_model(m["opt"])
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in m["first_batch"].items()}
+    del m
+    readings, kept = bf16_meta_checks(
+        "15c", model, batch, gen, dcn, PLAIN_DCN_CALLS, META_LAUNCHES,
+        (edvr_module, "deform_conv2d", plain_dcn), lambda n: "conv_offset_mask.weight" in n,
+        OFFSET_STD, keep=TANGENT_KERNELS)
+    out["15c"].update(readings)
+    rows = tangent_rows(kept, smi)
+    del model, kept
+    torch.cuda.empty_cache()
+
+    # 15d: 10c's EDVR-M and 11b's DUF-16L meta-trained in bf16.
+    runs = {"15d-EDVR-M": (lambda res: meta_opt(
+                reds_gt, est_5f, root, res, name="DynaVSR_EDVR_M_REDS_bf16",
+                net={**EDVR_M, "dtype": "bfloat16"}, niter=BF16_META_NITER, save=None),
+             dcn, PLAIN_DCN_CALLS, META_LAUNCHES, (edvr_module, "deform_conv2d", plain_dcn),
+             lambda n: "conv_offset_mask.weight" in n, meta["10c"]["s_per_iter"]),
+            "15d-DUF-16L": (lambda res: meta2_opt(
+                "11b", meta["vimeo_lmdb"], meta["10a"]["final"], root, res, dtype="bfloat16",
+                niter=BF16_META_NITER, save=None),
+             duf_filter, {n: PLAIN_BN_CALLS[n] for n in DUF_KERNELS}, META2_LAUNCHES["11b"],
+             META2_RUNS["11b"]["swap"], None, meta2["11b"]["s_per_iter"])}
+    for tag, (make_opt, module, plain, expect, swap, redraw, fp32_s) in runs.items():
+        m = train_and_resume(tag, make_opt, BF16_META_NITER, None, MetaModel, per_update=expect)
+        recs = m["recs"]
+        check(all(math.isfinite(r[k]) for r in recs for k in ("l_outer", "l_inner", "grad_norm")),
+              f"{tag}: {recs}")
+        out[tag] = {k: v for k, v in m.items() if k not in ("opt", "recs", "first_batch")}
+        out[tag].update(fp32_s_per_iter=fp32_s, l_outer=[r["l_outer"] for r in recs])
+        print(f"[edvr_l] {tag} bf16 meta: {BF16_META_NITER} updates in {m['run_s']:.1f} s; "
+              f"updates 3-{BF16_META_NITER} {m['s_per_iter']:.4f} s each (fp32, phases 10 / 11: "
+              f"{fp32_s:.4f} s); peak {m['peak_gib']:.2f} GiB above the {m['held_gib']:.2f} "
+              f"held; launches an update {m['per_update']}  [{smi}]")
+        model = trained_model(m["opt"])
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in m["first_batch"].items()}
+        del m
+        readings, _ = bf16_meta_checks(tag, model, batch, gen, module, plain, expect, swap,
+                                       redraw, OFFSET_STD)
+        out[tag].update(readings)
+        del model
+        torch.cuda.empty_cache()
+    return out, rows, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3583,7 +3997,12 @@ def main() -> None:
         multi = phase_multi(smi, edvr_ctx, (reds_gt, reds_lq), meta["est_5f"], root)
         multi["seconds"] = time.perf_counter() - t_multi
         print(f"[multi] phase 14 took {multi['seconds']:.1f} s")
-    rows += train_rows + meta_rows + meta2_rows
+        t_large = time.perf_counter()
+        edvr_l, edvr_l_rows, edvr_l_launches = phase_edvr_l(
+            smi, gen, lq, gt, edvr_ctx, main_results, (reds_gt, reds_lq), meta, meta2, root)
+        edvr_l["seconds"] = time.perf_counter() - t_large
+        print(f"[edvr_l] phase 15 took {edvr_l['seconds']:.1f} s")
+    rows += train_rows + meta_rows + meta2_rows + edvr_l_rows
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
     launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
@@ -3618,12 +4037,24 @@ def main() -> None:
                                     f"train_plain_ms{suffix}": rt["plain_ms"],
                                     f"train_bound_ms{suffix}": rt["bound_ms"],
                                     f"train_launches{suffix}": training[tag]["launches"][name]})
+    # The bf16 K8-K10 (phase 15c: EDVR-L's meta update, its largest call, the
+    # inner step's 10 SLR frames of 8x8 at 128 channels; launches of 15c's run).
+    for name in TANGENT_KERNELS:
+        source, _, replaces = KERNELS[name]
+        row = next(r for r in edvr_l_rows if r["name"] == name and r["label"] == "meta 10x8x8")
+        kernels.append({"name": f"{name}_bf16", "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": edvr_l_launches[name],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": None, "dtype": "bfloat16",
+                        "kernel_ms": row["kernel_ms"], "host_us": row["host_us"],
+                        "kernel_roofline": row["kernel_roofline"]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
                        "duf": duf_results, "surface": surface, "train": training,
                        "meta": meta, "meta2": meta2, "tiles": tiles, "stream": stream,
-                       "multi": multi,
+                       "multi": multi, "edvr_l": edvr_l,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print("[train] " + json.dumps(training))
@@ -3632,6 +4063,7 @@ def main() -> None:
     print("[tiles] " + json.dumps(tiles, default=str))
     print("[stream] " + json.dumps(stream, default=str))
     print("[multi] " + json.dumps(multi, default=str))
+    print("[edvr_l] " + json.dumps(edvr_l, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

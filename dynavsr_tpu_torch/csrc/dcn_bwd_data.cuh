@@ -559,11 +559,11 @@ __device__ __forceinline__ void store_sums(const float* stg, T* goff, T* gmask, 
 // x 64), one weight slot (noc x 64 x 64), the tile's grad_col (128 x 64
 // fp32), its samples (128 x 8 slots float4; kTan also their (cy, cx), 128 x
 // 8 float2) and the staging of the offset and mask gradients (kSums x 8
-// segments x 128 fp32). wt: bf16 (9, C, Cout), fp32 (9, Cout, C). bf16 also
-// stages the next step's raw offsets and masks (3 x 8 x 130). Thread t owns
+// segments x 128 fp32). wt: bf16 (9, C, Cout), fp32 (9, Cout, C). bf16 K2
+// also stages the next step's raw offsets and masks (3 x 8 x 130). Thread t owns
 // segment t % 8 of the 4 pixels (t / 32, 4 (t / 8 % 4) ..): their samples'
-// offset and mask gradients, and their grad x. kTan (K10, fp32): the
-// tangent rule along coff; tiles of whole frames where g.fx > 0. The
+// offset and mask gradients, and their grad x. kTan (K10): the tangent
+// rule along coff; tiles of whole frames where g.fx > 0. The
 // kernel body, run by K2's dcn_bwd_data_kernel and K10's
 // dcn_bwd_data_tangent_kernel (kThreads threads, at most 2 blocks an SM).
 template <typename T, bool kTan>
@@ -576,7 +576,6 @@ __device__ __forceinline__ void bwd_data_body(const T* __restrict__ x,
                                               T* __restrict__ goff, T* __restrict__ gmask,
                                               Geo g, int C, int Cout, int gd, int nitems,
                                               int ntg) {
-  static_assert(!kTan || sizeof(T) == 4, "the tangent rule is fp32 only");
   extern __shared__ __align__(16) unsigned char smem[];
   const int noc = (Cout + kN - 1) / kN, nch = (C + kCK - 1) / kCK;
   T* gt = reinterpret_cast<T*>(smem);
@@ -586,7 +585,10 @@ __device__ __forceinline__ void bwd_data_body(const T* __restrict__ x,
   float2* ctan = reinterpret_cast<float2*>(prm + kSlots * kTP);  // kTan only
   float* stg = reinterpret_cast<float*>(ctan + (kTan ? kSlots * kTP : 0));
   T* raw = reinterpret_cast<T*>(stg + kSums<kTan> * kSeg * kSP);  // bf16 only
-  constexpr bool kAhead = sizeof(T) == 2;  // bf16: samples staged a step ahead
+  // bf16 K2: samples staged a step ahead. K10 loads them at each step in
+  // both dtypes: its (cy, cx) and its tiles of whole frames have no place in
+  // the staging (fetch_params reads one frame's rows).
+  constexpr bool kAhead = sizeof(T) == 2 && !kTan;
   const int H = g.H, W = g.W;
   const bool pvec = W % 2 == 0 && (uintptr_t)offset % 4 == 0 && (uintptr_t)mask % 4 == 0;
   const int hw = H * W, cg = C / gd, gk = gd * kTaps;

@@ -2,7 +2,7 @@
 // dcn_bwd_weight and, with the tangent weight rule (kTan), by K9
 // dcn_bwd_weight_tangent (dcn_tangent.cu): the same contraction
 //   grad_W[o,c,k] = sum_{b,p} g[b,o,p] * col[b,c,k,p]
-// over K1's columns (K3) or K8's tangent columns (K9, fp32).
+// over K1's columns (K3) or K8's tangent columns (K9).
 //
 // A block owns one (tap, 64 out-channel, 64 channel) tile of grad_W and
 // walks pixel tiles x, x + gridDim.x, ... Each tile: the grad_out tile
@@ -30,14 +30,14 @@ __device__ __forceinline__ void cp16(void* dst, const void* src) {
 //  bf16: [64 o][128 p], 16-byte chunk j of row o at j ^ (o & 7);
 //  fp32: [64 o][128 p], 4-pixel group q of row o at col_px (as K1's fp32
 //  column tile, with o for the channel).
-// kFlat (fp32): each 4-pixel group comes from its own frame's plane, frames
-// `geo` pixels apart (a multiple of 4, so a group never straddles two);
-// pixels in a frame's padding or past the last of the B frames are zeros.
-// Otherwise the tile is tile % geo of frame tile / geo.
+// kFlat: each 16-byte chunk (4 pixels in fp32, 8 in bf16) comes from its
+// own frame's plane, frames `geo` pixels apart (a multiple of the chunk's
+// pixels, so a chunk never straddles two); pixels in a frame's padding or
+// past the last of the B frames are zeros. Otherwise the tile is tile % geo
+// of frame tile / geo.
 template <bool kFlat, typename T>
 __device__ __forceinline__ void load_gtile(T* dst, const T* gout, int tile, int geo, int B,
                                            int o0, int Cout, int hw, bool vec) {
-  static_assert(!kFlat || sizeof(T) == 4, "flat tiles are fp32 only");
   constexpr int kE = 16 / (int)sizeof(T), kChunks = kP / kE;
   int b = tile / geo;
   const int p0 = (tile - b * geo) * kP;
@@ -164,8 +164,9 @@ __device__ __forceinline__ void flush_w(const float (&acc)[16], float* gw, int k
 // Block (x, y): pixel tiles x, x + gridDim.x, ... of ntiles; y = (out-chunk,
 // in-chunk, tap). Shared memory: the column tile (128 x 64) and the
 // grad_out tile (64 x 128). x is channels-last; gw the (9, Cout, C) fp32
-// scratch, zeroed before. kTan: the tangent rule along coff (fp32) on flat
-// tiles (`geo` the frames' stride); otherwise per-frame tiles (`geo` tpf).
+// scratch, zeroed before. kTan: the tangent rule along coff on flat tiles
+// (`geo` the frames' stride: a multiple of 4 pixels in fp32, of 8 in bf16,
+// load_gtile's chunk); otherwise per-frame tiles (`geo` tpf).
 template <typename T, bool kVec, bool kTan>
 __device__ __forceinline__ void bwd_weight_body(const T* __restrict__ x,
                                                 const T* __restrict__ offset,

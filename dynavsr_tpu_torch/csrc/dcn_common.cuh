@@ -426,13 +426,13 @@ __device__ __forceinline__ void store_col(float* col, int r, const float val[kSe
 // Gather the column tile of step (tap k, channels [c0, c0 + 64)) of tile
 // tl into dst, round by round, running between(r) after the corner loads
 // of round r (and in bf16 of round r + 1) are issued. kTan: the tangent
-// rule, along the offset cotangent coff (as offset; fp32 only).
+// rule, along the offset cotangent coff (as offset; in bf16 the tangent
+// columns are rounded to bf16 as K1's columns are).
 template <typename T, bool kVec, bool kTan, typename F>
 __device__ __forceinline__ void gather_step(T* dst, const T* x, const T* offset, const T* mask,
                                             const T* coff, Tile tl, int k, int c0, int C, int H,
                                             int W, float inv_w, int cg, int gk, bool quads,
                                             F&& between) {
-  static_assert(!kTan || sizeof(T) == 4, "the tangent rule is fp32 only");
   if constexpr (kVec) {
     Pre p;
     prefetch<kTan>(p, offset, mask, coff, tl, k, c0, C, H, W, inv_w, cg, gk, quads);

@@ -4,9 +4,11 @@
 //
 // A block owns 64 output channels and walks items x, x + gridDim.x, ...:
 // item = (pixel tile, split), tile-major. A tile's steps (tap, 64-channel
-// chunk) are cut into `nsplit` runs of `per` consecutive steps; split 0
-// sums its run into out, split s > 0 into part + (s - 1) n_out (K1: one
-// split). Tiles of 128 pixels are tpf tiles of each frame (K1: `geo` is
+// chunk) are cut into `nsplit` runs of `per` consecutive steps; in fp32
+// split 0 sums its run into out and split s > 0 into part + (s - 1) n_out,
+// in bf16 (more than one split) split s into part + s n_out, so no partial
+// sum is rounded to bf16 before the ordered sum (K1: one split). part is
+// fp32. Tiles of 128 pixels are tpf tiles of each frame (K1: `geo` is
 // tpf) or walk the flattened (frame, pixel) index with frames `geo` pixels
 // apart (K8; dcn_common.cuh: tile_at).
 #pragma once
@@ -16,10 +18,11 @@
 namespace dcn {
 namespace fwd {
 
-// Bias, and the finished tile out to NCHW in out's dtype. kFlat: the tile
+// Bias, and the finished tile out to NCHW in out's dtype (U: T, or fp32
+// for K8's partial sums); T sets the accumulators' layout. kFlat: the tile
 // may span frames (tile_at).
-template <bool kFlat, typename T>
-__device__ __forceinline__ void epilogue(float (&acc)[32], T* out, const T* bias, int tile,
+template <bool kFlat, typename T, typename U>
+__device__ __forceinline__ void epilogue(float (&acc)[32], U* out, const T* bias, int tile,
                                          int geo, int B, int o0, int hw, int Cout) {
   const int b0 = kFlat ? tile * kP / geo : tile / geo;
   const int p0 = kFlat ? tile * kP - b0 * geo : (tile - b0 * geo) * kP;
@@ -44,14 +47,15 @@ __device__ __forceinline__ void epilogue(float (&acc)[32], T* out, const T* bias
 // block: out-channels [64 y, 64 y + 64); items x, x + gridDim.x, ...
 // Shared memory: the column ring (2 x 128 x 64) and the weight ring (2
 // slices of 64 x 64), each filled one step ahead. x is channels-last.
-// kTan: the tangent rule along coff (fp32), no bias.
+// kTan: the tangent rule along coff, no bias.
 template <typename T, bool kVec, bool kTan>
 __device__ __forceinline__ void fwd_body(const T* __restrict__ x, const T* __restrict__ offset,
                                          const T* __restrict__ mask, const T* __restrict__ coff,
                                          const T* __restrict__ wt, const T* __restrict__ bias,
-                                         T* __restrict__ out, T* __restrict__ part, int B, int C,
-                                         int H, int W, int Cout, int gd, int geo, int nitems,
-                                         int nch, int nsplit, int64_t n_out, bool quads) {
+                                         T* __restrict__ out, float* __restrict__ part, int B,
+                                         int C, int H, int W, int Cout, int gd, int geo,
+                                         int nitems, int nch, int nsplit, int64_t n_out,
+                                         bool quads) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* col = reinterpret_cast<T*>(smem);
   T* wsm = col + 2 * kP * kCK;
@@ -99,8 +103,11 @@ __device__ __forceinline__ void fwd_body(const T* __restrict__ x, const T* __res
     }
     if (s == per - 1) {
       const int split = item % nsp;
-      epilogue<kTan>(acc, split ? part + (split - 1) * n_out : out, bias, item / nsp, geo, B, o0,
-                     H * W, Cout);
+      if (split == 0 && (sizeof(T) == 4 || nsp == 1))
+        epilogue<kTan>(acc, out, bias, item / nsp, geo, B, o0, H * W, Cout);
+      else  // fp32 partial sums (bf16: every split's, summed and rounded by sum_parts)
+        epilogue<kTan>(acc, part + (split - (sizeof(T) == 4)) * n_out, bias, item / nsp, geo, B,
+                       o0, H * W, Cout);
     }
     if (!more) break;
     __syncthreads();

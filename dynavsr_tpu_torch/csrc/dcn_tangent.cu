@@ -1,6 +1,6 @@
 // K8 dcn_fwd_tangent, K9 dcn_bwd_weight_tangent, K10 dcn_bwd_data_tangent:
-// the terms of the DCN's second order along an offset cotangent, fp32, for
-// sm_90a.
+// the terms of the DCN's second order along an offset cotangent, fp32 and
+// bf16, for sm_90a.
 //
 // Replaces: the second-order VJP that JAX's autodiff takes of
 // dynavsr_tpu/ops/dcn_fused.py:deform_conv2d_fused when meta-training
@@ -60,7 +60,22 @@
 //    at most 8 rows and 4, 8 or 16 columns: the 8x8 and 4x4 levels), and
 //    K2's tap groups (1, 3 or 9 items a tile) split the taps over blocks;
 //    the items' grad x meets in one fp32 scratch by atomics, as in K2.
-// fp32 only: the meta configs run fp32; a bf16 call raises in the wrapper.
+//
+// bf16 (an EDVR net in bf16 meta-trained to second order, as EDVR-L's
+// configs run it): the same bodies at T = bf16, K1-K3's bf16 paths with the
+// tangent rule. The function is JAX's bf16 autodiff of the fused kernel, at
+// K1-K3's rounding points: the tangent columns are formed in fp32 from the
+// bf16 x, offsets, masks and cotangents and rounded to bf16 for the
+// tensor-core products (K8 against the bf16 weight, K9 against the bf16
+// grad_out), as K1 rounds its columns; K10's gc = W^T . grad_out is an fp32
+// product of bf16 operands kept in fp32, as in K2. Every sum, scratch and
+// atomic is fp32 (K8's split partial sums too: each split writes fp32 and
+// the last pass adds them in order and rounds once), and the outputs are in
+// x's dtype (K10's grad x is summed into an fp32 channels-last scratch and
+// written out once as bf16). K10 loads its samples at each step as fp32
+// does: K2's bf16 staging a step ahead holds one frame's offsets and masks,
+// not the cotangents or the whole-frame tiles. K9's flat tiles pad frames
+// to 8 pixels in bf16, so a 16-byte grad_out chunk never straddles two.
 #include <stdint.h>
 
 #include <algorithm>
@@ -72,7 +87,8 @@
 namespace dcn {
 namespace tng {
 
-// K8's last pass: out += the partial sums of splits 1 .. nparts, in order.
+// K8's last pass: out += the partial sums of splits 1 .. nparts, in order
+// (fp32), or out = the sum of splits 0 .. nparts - 1 rounded once (bf16).
 __global__ void __launch_bounds__(256) sum_parts(float* __restrict__ out,
                                                  const float* __restrict__ part, int64_t n,
                                                  int nparts) {
@@ -97,76 +113,113 @@ __global__ void __launch_bounds__(256) sum_parts(float* __restrict__ out,
   }
 }
 
+__global__ void __launch_bounds__(256) sum_parts(__nv_bfloat16* __restrict__ out,
+                                                 const float* __restrict__ part, int64_t n,
+                                                 int nparts) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  if (n % 4 == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4; i += step) {
+      float4 s = p4[i];
+      for (int q = 1; q < nparts; ++q) {
+        const float4 v = p4[q * (n / 4) + i];
+        s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+      }
+      *reinterpret_cast<uint2*>(out + 4 * i) = make_uint2(pack_bf16(s.x, s.y),
+                                                          pack_bf16(s.z, s.w));
+    }
+    return;
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
+    float s = part[i];
+    for (int q = 1; q < nparts; ++q) s += part[q * n + i];
+    out[i] = __float2bfloat16(s);
+  }
+}
+
+// K10's last pass in bf16: the fp32 grad x scratch out in bf16.
+__global__ void __launch_bounds__(256) to_bf16(const float* __restrict__ s,
+                                               __nv_bfloat16* __restrict__ out, int64_t n) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
+    out[i] = __float2bfloat16(s[i]);
+}
+
 // K8: K1's body with the tangent rule, on tiles across frames and splits.
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-dcn_fwd_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                       const float* __restrict__ mask, const float* __restrict__ coff,
-                       const float* __restrict__ wt, float* __restrict__ out,
+dcn_fwd_tangent_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                       const T* __restrict__ mask, const T* __restrict__ coff,
+                       const T* __restrict__ wt, T* __restrict__ out,
                        float* __restrict__ part, int B, int C, int H, int W, int Cout, int gd,
                        int stride, int nitems, int nch, int nsplit, int64_t n_out, bool quads) {
-  fwd::fwd_body<float, kVec, true>(x, offset, mask, coff, wt, nullptr, out, part, B, C, H, W,
-                                   Cout, gd, stride, nitems, nch, nsplit, n_out, quads);
+  fwd::fwd_body<T, kVec, true>(x, offset, mask, coff, wt, nullptr, out, part, B, C, H, W, Cout,
+                               gd, stride, nitems, nch, nsplit, n_out, quads);
 }
 
 // K9: K3's body with the tangent rule, on tiles across frames.
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-dcn_bwd_weight_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                              const float* __restrict__ mask, const float* __restrict__ coff,
-                              const float* __restrict__ gout, float* __restrict__ gw, int B,
+dcn_bwd_weight_tangent_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                              const T* __restrict__ mask, const T* __restrict__ coff,
+                              const T* __restrict__ gout, float* __restrict__ gw, int B,
                               int C, int H, int W, int Cout, int gd, int stride, int ntiles,
                               int c_tiles, bool quads, bool gvec) {
-  bwd::bwd_weight_body<float, kVec, true>(x, offset, mask, coff, gout, gw, B, C, H, W, Cout, gd,
-                                          stride, ntiles, c_tiles, quads, gvec);
+  bwd::bwd_weight_body<T, kVec, true>(x, offset, mask, coff, gout, gw, B, C, H, W, Cout, gd,
+                                      stride, ntiles, c_tiles, quads, gvec);
 }
 
 // K9's last pass: its (9, Cout, C) scratch out as (Cout, C, 3, 3).
+template <typename T>
 __global__ void __launch_bounds__(256)
-gw_tangent_to_oihw(const float* __restrict__ s, float* __restrict__ gw, int Cout, int C) {
+gw_tangent_to_oihw(const float* __restrict__ s, T* __restrict__ gw, int Cout, int C) {
   bwd::scratch_to_oihw(s, gw, Cout, C);
 }
 
 // K10: K2's body with the tangent rule, and its element-by-element form.
+// grad x is summed into gx, an fp32 channels-last scratch.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-dcn_bwd_data_tangent_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                            const float* __restrict__ mask, const float* __restrict__ coff,
-                            const float* __restrict__ wt, const float* __restrict__ gout,
-                            float* __restrict__ gx, float* __restrict__ goff,
-                            float* __restrict__ gmask, bwd::Geo g, int C, int Cout, int gd,
+dcn_bwd_data_tangent_kernel(const T* __restrict__ x, const T* __restrict__ offset,
+                            const T* __restrict__ mask, const T* __restrict__ coff,
+                            const T* __restrict__ wt, const T* __restrict__ gout,
+                            float* __restrict__ gx, T* __restrict__ goff,
+                            T* __restrict__ gmask, bwd::Geo g, int C, int Cout, int gd,
                             int nitems, int ntg) {
-  bwd::bwd_data_body<float, true>(x, offset, mask, coff, wt, gout, gx, goff, gmask, g, C, Cout,
-                                  gd, nitems, ntg);
+  bwd::bwd_data_body<T, true>(x, offset, mask, coff, wt, gout, gx, goff, gmask, g, C, Cout, gd,
+                              nitems, ntg);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-dcn_bwd_data_tangent_kernel_any(const float* __restrict__ x, const float* __restrict__ offset,
-                                const float* __restrict__ mask, const float* __restrict__ coff,
-                                const float* __restrict__ wt, const float* __restrict__ gout,
-                                float* __restrict__ gx, float* __restrict__ goff,
-                                float* __restrict__ gmask, int B, int C, int H, int W, int Cout,
+dcn_bwd_data_tangent_kernel_any(const T* __restrict__ x, const T* __restrict__ offset,
+                                const T* __restrict__ mask, const T* __restrict__ coff,
+                                const T* __restrict__ wt, const T* __restrict__ gout,
+                                float* __restrict__ gx, T* __restrict__ goff,
+                                T* __restrict__ gmask, int B, int C, int H, int W, int Cout,
                                 int gd) {
-  bwd::bwd_data_any_body<float, true>(x, offset, mask, coff, wt, gout, gx, goff, gmask, B, C, H,
-                                      W, Cout, gd);
+  bwd::bwd_data_any_body<T, true>(x, offset, mask, coff, wt, gout, gx, goff, gmask, B, C, H, W,
+                                  Cout, gd);
 }
 
 // K8's shared memory (K1's kernel with the tangent rule): the column and
-// weight rings, 96 KB.
-constexpr size_t kFwdSmem = (2 * kP * kCK + 2 * kCK * kN) * sizeof(float);
+// weight rings, 96 KB in fp32, 48 KB in bf16.
+template <typename T>
+constexpr size_t kFwdSmem = (2 * kP * kCK + 2 * kCK * kN) * sizeof(T);
 
 // K8's geometry: frames padded to 4 pixels, 128-pixel tiles across them.
 struct FwdPlan {
   int stride, ntiles, gy, slots;
 };
 
-template <bool kVec>
+template <typename T, bool kVec>
 static FwdPlan fwd_plan(int B, int H, int W, int Cout) {
   FwdPlan p;
   p.stride = (H * W + 3) / 4 * 4;
   p.ntiles = (int)(((int64_t)B * p.stride + kP - 1) / kP);
   p.gy = (Cout + kN - 1) / kN;
   static Slots memo[16];
-  p.slots = grid_slots(dcn_fwd_tangent_kernel<kVec>, kFwdSmem, memo) / p.gy;
+  p.slots = grid_slots(dcn_fwd_tangent_kernel<T, kVec>, kFwdSmem<T>, memo) / p.gy;
   return p;
 }
 
@@ -185,46 +238,57 @@ static int fwd_splits(const FwdPlan& p, int steps) {
 
 static bool vec_shape(int C, int gd) { return C % kSeg == 0 && (C / gd) % kSeg == 0; }
 
-template <bool kVec>
-static int launch_fwd(const float* x, const float* offset, const float* mask, const float* coff,
-                      const float* wt, float* out, float* part, int B, int C, int H, int W,
-                      int Cout, int gd, int split, cudaStream_t s) {
-  const FwdPlan p = fwd_plan<kVec>(B, H, W, Cout);
+template <typename T>
+static int splits(int B, int C, int H, int W, int Cout, int gd) {
+  const int steps = kTaps * ((C + kCK - 1) / kCK);
+  return vec_shape(C, gd) ? fwd_splits(fwd_plan<T, true>(B, H, W, Cout), steps)
+                          : fwd_splits(fwd_plan<T, false>(B, H, W, Cout), steps);
+}
+
+template <typename T, bool kVec>
+static int launch_fwd(const T* x, const T* offset, const T* mask, const T* coff, const T* wt,
+                      T* out, float* part, int B, int C, int H, int W, int Cout, int gd,
+                      int split, cudaStream_t s) {
+  const FwdPlan p = fwd_plan<T, kVec>(B, H, W, Cout);
   if (p.slots < 1) return (int)cudaErrorInvalidConfiguration;
   const int nch = (C + kCK - 1) / kCK, nitems = p.ntiles * split;
   const int64_t n_out = (int64_t)B * Cout * H * W;
   const bool quads = H * W % 4 == 0 && (uintptr_t)offset % 16 == 0 &&
                      (uintptr_t)mask % 16 == 0 && (uintptr_t)coff % 16 == 0;
-  dcn_fwd_tangent_kernel<kVec><<<dim3(std::min(nitems, p.slots), p.gy), kThreads, kFwdSmem, s>>>(
-      x, offset, mask, coff, wt, out, part, B, C, H, W, Cout, gd, p.stride, nitems, nch, split,
-      n_out, quads);
+  dcn_fwd_tangent_kernel<T, kVec>
+      <<<dim3(std::min(nitems, p.slots), p.gy), kThreads, kFwdSmem<T>, s>>>(
+          x, offset, mask, coff, wt, out, part, B, C, H, W, Cout, gd, p.stride, nitems, nch,
+          split, n_out, quads);
   if (split > 1) {
     const int64_t blocks = std::min<int64_t>((n_out / 4 + 255) / 256 + 1, 4096);
-    sum_parts<<<(unsigned)blocks, 256, 0, s>>>(out, part, n_out, split - 1);
+    // fp32: splits 1.. into out; bf16: all of them, rounded once.
+    sum_parts<<<(unsigned)blocks, 256, 0, s>>>(out, part, n_out,
+                                               sizeof(T) == 4 ? split - 1 : split);
   }
   return (int)cudaGetLastError();
 }
 
 // K10's shared memory (K2's kernel with the tangent rule): the grad_out
-// tile and weight slot, grad_col, the samples and their (cy, cx), and two
-// group sums.
+// tile and weight slot (in x's dtype), grad_col, the samples and their (cy,
+// cx), and two group sums.
+template <typename T>
 static size_t data_smem(int noc) {
-  return (size_t)noc * (bwd::kTP + kCK) * kN * sizeof(float) +
+  return (size_t)noc * (bwd::kTP + kCK) * kN * sizeof(T) +
          (bwd::kTP * kCK + bwd::kSums<true> * kSeg * bwd::kSP) * sizeof(float) +
          bwd::kSlots * bwd::kTP * (sizeof(float4) + sizeof(float2));
 }
 
 // K10 on the shapes K2's vector path takes: tiles of whole frames where
 // they fit, tap groups as K2's (split, or the launcher's choice for 0).
-static int launch_data(const float* x, const float* offset, const float* mask,
-                       const float* coff, const float* wt, const float* gout, float* gx,
-                       float* goff, float* gmask, int B, int C, int H, int W, int Cout, int gd,
-                       int split, cudaStream_t s) {
+template <typename T>
+static int launch_data(const T* x, const T* offset, const T* mask, const T* coff, const T* wt,
+                       const T* gout, float* gx, T* goff, T* gmask, int B, int C, int H, int W,
+                       int Cout, int gd, int split, cudaStream_t s) {
   using bwd::kTH;
   using bwd::kTW;
   const int noc = (Cout + kN - 1) / kN;
-  const size_t smem = data_smem(noc);
-  auto kernel = dcn_bwd_data_tangent_kernel;
+  const size_t smem = data_smem<T>(noc);
+  auto kernel = dcn_bwd_data_tangent_kernel<T>;
   static Slots memo[16];
   const int slots = grid_slots(kernel, smem, memo);
   if (slots < 1) return (int)cudaErrorInvalidConfiguration;
@@ -246,111 +310,167 @@ static int launch_data(const float* x, const float* offset, const float* mask,
   return 0;
 }
 
-// K9: the grad_out and column tiles (K3's), 64 KB.
-constexpr size_t kWeightSmem = (kP * kCK + kN * kP) * sizeof(float);
+// K9: the grad_out and column tiles (K3's), 64 KB in fp32, 32 KB in bf16.
+template <typename T>
+constexpr size_t kWeightSmem = (kP * kCK + kN * kP) * sizeof(T);
 
-// K9 on the flat tiles of K8 (frames padded to 4 pixels), one block a (tap,
-// channel chunk, out-chunk) and a share of the tiles, as many blocks as the
-// card holds at once; gsc the (9, Cout, C) scratch, zeroed before.
-template <bool kVec>
-static int launch_weight(const float* x, const float* offset, const float* mask,
-                         const float* coff, const float* gout, float* gsc, int B, int C, int H,
-                         int W, int Cout, int gd, cudaStream_t s) {
-  auto kernel = dcn_bwd_weight_tangent_kernel<kVec>;
+// K9 on the flat tiles of K8 (frames padded to 4 pixels in fp32, 8 in
+// bf16), one block a (tap, channel chunk, out-chunk) and a share of the
+// tiles, as many blocks as the card holds at once; gsc the (9, Cout, C)
+// scratch, zeroed before.
+template <typename T, bool kVec>
+static int launch_weight(const T* x, const T* offset, const T* mask, const T* coff,
+                         const T* gout, float* gsc, int B, int C, int H, int W, int Cout, int gd,
+                         cudaStream_t s) {
+  constexpr int kE = 16 / (int)sizeof(T);  // pixels of a 16-byte grad_out chunk
+  auto kernel = dcn_bwd_weight_tangent_kernel<T, kVec>;
   static Slots memo[16];
-  const int slots = grid_slots(kernel, kWeightSmem, memo);
+  const int slots = grid_slots(kernel, kWeightSmem<T>, memo);
   if (slots < 1) return (int)cudaErrorInvalidConfiguration;
-  const int hw = H * W, stride = (hw + 3) / 4 * 4;
+  const int hw = H * W, stride = (hw + kE - 1) / kE * kE;
   const int ntiles = (int)(((int64_t)B * stride + kP - 1) / kP);
   const int c_tiles = (C + kCK - 1) / kCK, gy = kTaps * c_tiles * ((Cout + kN - 1) / kN);
   const int gxn = std::min(ntiles, std::max(1, slots / gy));
   const bool quads = hw % 4 == 0 && (uintptr_t)offset % 16 == 0 &&
                      (uintptr_t)mask % 16 == 0 && (uintptr_t)coff % 16 == 0;
-  const bool gvec = hw % 4 == 0 && (uintptr_t)gout % 16 == 0;
-  kernel<<<dim3(gxn, gy), kThreads, kWeightSmem, s>>>(x, offset, mask, coff, gout, gsc, B, C, H,
-                                                      W, Cout, gd, stride, ntiles, c_tiles,
-                                                      quads, gvec);
+  const bool gvec = hw % kE == 0 && (uintptr_t)gout % 16 == 0;
+  kernel<<<dim3(gxn, gy), kThreads, kWeightSmem<T>, s>>>(x, offset, mask, coff, gout, gsc, B, C,
+                                                         H, W, Cout, gd, stride, ntiles, c_tiles,
+                                                         quads, gvec);
+  return 0;
+}
+
+template <typename T>
+static int fwd_tangent(const void* x_cl, const void* offset, const void* mask, const void* coff,
+                       const void* wt, void* out, void* part, int B, int C, int H, int W,
+                       int Cout, int gd, int split, cudaStream_t s) {
+  auto run = vec_shape(C, gd) ? launch_fwd<T, true> : launch_fwd<T, false>;
+  return run((const T*)x_cl, (const T*)offset, (const T*)mask, (const T*)coff, (const T*)wt,
+             (T*)out, (float*)part, B, C, H, W, Cout, gd, split, s);
+}
+
+template <typename T>
+static int bwd_weight_tangent(const void* x_cl, const void* offset, const void* mask,
+                              const void* coff, const void* grad_out, float* gsc, void* gw,
+                              int B, int C, int H, int W, int Cout, int gd, cudaStream_t s) {
+  const int n = kTaps * Cout * C;
+  cudaMemsetAsync(gsc, 0, sizeof(float) * (size_t)n, s);
+  if (B > 0 && H * W > 0) {
+    auto run = vec_shape(C, gd) ? launch_weight<T, true> : launch_weight<T, false>;
+    const int rc = run((const T*)x_cl, (const T*)offset, (const T*)mask, (const T*)coff,
+                       (const T*)grad_out, gsc, B, C, H, W, Cout, gd, s);
+    if (rc != 0) return rc;
+  }
+  gw_tangent_to_oihw<T><<<std::max(1, std::min((n + 255) / 256, 1024)), 256, 0, s>>>(
+      gsc, (T*)gw, Cout, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int bwd_data_tangent(const void* x_cl, const void* offset, const void* mask,
+                            const void* coff, const void* wt, const void* grad_out, float* gsc,
+                            void* goff, void* gmask, int B, int C, int H, int W, int Cout,
+                            int gd, int split, cudaStream_t s) {
+  const int hw = H * W, cg = C / gd;
+  cudaMemsetAsync(gsc, 0, sizeof(float) * (size_t)B * hw * C, s);
+  if (B == 0 || hw == 0 || C == 0) return (int)cudaGetLastError();
+  const T *xf = (const T*)x_cl, *of = (const T*)offset, *mf = (const T*)mask,
+          *cf = (const T*)coff, *wf = (const T*)wt, *gf = (const T*)grad_out;
+  if (C % kSeg == 0 && cg % kSeg == 0 && (kCK % cg == 0 || cg % kCK == 0) &&
+      H <= bwd::kMaxSide && W <= bwd::kMaxSide) {
+    return launch_data<T>(xf, of, mf, cf, wf, gf, gsc, (T*)goff, (T*)gmask, B, C, H, W, Cout,
+                          gd, split, s);
+  }
+  const int64_t threads = (int64_t)B * gd * kTaps * hw;
+  dcn_bwd_data_tangent_kernel_any<T><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      xf, of, mf, cf, wf, gf, gsc, (T*)goff, (T*)gmask, B, C, H, W, Cout, gd);
   return 0;
 }
 
 }  // namespace tng
 }  // namespace dcn
 
-// All tensors fp32. x_cl: x channels-last (B, H, W, C); offset, coff (B,
-// 2*Gd*9, H, W) and mask (B, Gd*9, H, W, or null) NCHW; wt (9, C, Cout).
+// dtype: 0 = float32, 1 = bfloat16 for x_cl, offset, mask, coff, wt,
+// grad_out and the outputs; scratches are fp32. x_cl: x channels-last (B,
+// H, W, C); offset, coff (B, 2*Gd*9, H, W) and mask (B, Gd*9, H, W, or
+// null) NCHW.
 // The number of splits of a tile's steps K8 takes at this shape (1, 3 or
-// 9): the caller gives dcn_fwd_tangent that many, and a scratch for
-// split - 1 partial outputs.
-extern "C" int dcn_fwd_tangent_splits(int B, int C, int H, int W, int Cout, int gd) {
+// 9): the caller gives dcn_fwd_tangent that many, and its fp32 scratch.
+extern "C" int dcn_fwd_tangent_splits(int B, int C, int H, int W, int Cout, int gd,
+                                      int dtype) {
   using namespace dcn::tng;
   if (B == 0 || H * W == 0 || Cout == 0) return 1;
-  const int steps = dcn::kTaps * ((C + dcn::kCK - 1) / dcn::kCK);
-  return vec_shape(C, gd) ? fwd_splits(fwd_plan<true>(B, H, W, Cout), steps)
-                          : fwd_splits(fwd_plan<false>(B, H, W, Cout), steps);
+  return dtype == 1 ? splits<__nv_bfloat16>(B, C, H, W, Cout, gd)
+                    : splits<float>(B, C, H, W, Cout, gd);
 }
 
-// out (B, Cout, H, W), needs no initialising; part: (split - 1) * B * Cout
-// * H * W floats (null for split 1). Returns cudaGetLastError().
+// wt: fp32 (9, C, Cout), bf16 (9, Cout, C) (K1's layouts); out (B, Cout, H,
+// W), needs no initialising; part: fp32 scratch of (split - 1) * B * Cout
+// * H * W floats in fp32, split * that in bf16 (null for split 1). Returns
+// cudaGetLastError().
 extern "C" int dcn_fwd_tangent(const void* x_cl, const void* offset, const void* mask,
                                const void* coff, const void* wt, void* out, void* part, int B,
-                               int C, int H, int W, int Cout, int gd, int split, void* stream) {
+                               int C, int H, int W, int Cout, int gd, int split, int dtype,
+                               void* stream) {
   using namespace dcn::tng;
   if (B == 0 || H * W == 0 || Cout == 0) return 0;
   if (split != 1 && split != 3 && split != 9) return (int)cudaErrorInvalidValue;
-  auto run = vec_shape(C, gd) ? launch_fwd<true> : launch_fwd<false>;
-  return run((const float*)x_cl, (const float*)offset, (const float*)mask, (const float*)coff,
-             (const float*)wt, (float*)out, (float*)part, B, C, H, W, Cout, gd, split,
-             (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return fwd_tangent<float>(x_cl, offset, mask, coff, wt, out, part, B, C, H, W, Cout, gd,
+                              split, s);
+  if (dtype == 1)
+    return fwd_tangent<__nv_bfloat16>(x_cl, offset, mask, coff, wt, out, part, B, C, H, W,
+                                      Cout, gd, split, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // grad_out (B, Cout, H, W); gsc: fp32 scratch of 9*Cout*C; gw (Cout, C, 3,
 // 3), needs no initialising.
 extern "C" int dcn_bwd_weight_tangent(const void* x_cl, const void* offset, const void* mask,
                                       const void* coff, const void* grad_out, void* gsc, void* gw,
-                                      int B, int C, int H, int W, int Cout, int gd,
+                                      int B, int C, int H, int W, int Cout, int gd, int dtype,
                                       void* stream) {
   using namespace dcn::tng;
   cudaStream_t s = (cudaStream_t)stream;
   if (Cout == 0 || C == 0) return 0;
-  const int n = dcn::kTaps * Cout * C;
-  cudaMemsetAsync(gsc, 0, sizeof(float) * (size_t)n, s);
-  if (B > 0 && H * W > 0) {
-    auto run = vec_shape(C, gd) ? launch_weight<true> : launch_weight<false>;
-    const int rc = run((const float*)x_cl, (const float*)offset, (const float*)mask,
-                       (const float*)coff, (const float*)grad_out, (float*)gsc, B, C, H, W, Cout,
-                       gd, s);
-    if (rc != 0) return rc;
-  }
-  gw_tangent_to_oihw<<<std::max(1, std::min((n + 255) / 256, 1024)), 256, 0, s>>>(
-      (const float*)gsc, (float*)gw, Cout, C);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return bwd_weight_tangent<float>(x_cl, offset, mask, coff, grad_out, (float*)gsc, gw, B, C,
+                                     H, W, Cout, gd, s);
+  if (dtype == 1)
+    return bwd_weight_tangent<__nv_bfloat16>(x_cl, offset, mask, coff, grad_out, (float*)gsc,
+                                             gw, B, C, H, W, Cout, gd, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// wt (9, Cout, C); grad_out (B, Cout, H, W); gx_cl (B, H, W, C), zeroed
-// here; goff as offset, gmask as mask (null without a mask), need no
-// initialising. split: the tap groups of a tile (1, 3 or 9), 0 for the
-// launcher's choice.
+// wt: fp32 (9, Cout, C), bf16 (9, C, Cout) (K2's layouts); grad_out (B,
+// Cout, H, W); gsc: fp32 (B, H, W, C), zeroed here, into which grad x is
+// summed: in fp32 it is the output (gx_cl unused), in bf16 the launcher
+// writes it out into gx_cl (B, H, W, C); goff as offset, gmask as mask
+// (null without a mask), need no initialising. split: the tap groups of a
+// tile (1, 3 or 9), 0 for the launcher's choice.
 extern "C" int dcn_bwd_data_tangent(const void* x_cl, const void* offset, const void* mask,
                                     const void* coff, const void* wt, const void* grad_out,
-                                    void* gx_cl, void* goff, void* gmask, int B, int C, int H,
-                                    int W, int Cout, int gd, int split, void* stream) {
+                                    void* gsc, void* gx_cl, void* goff, void* gmask, int B, int C,
+                                    int H, int W, int Cout, int gd, int split, int dtype,
+                                    void* stream) {
   using namespace dcn::tng;
   cudaStream_t s = (cudaStream_t)stream;
-  const int hw = H * W, cg = C / gd;
-  cudaMemsetAsync(gx_cl, 0, sizeof(float) * (size_t)B * hw * C, s);
-  if (B == 0 || hw == 0 || C == 0) return (int)cudaGetLastError();
   if (split != 0 && split != 1 && split != 3 && split != 9) return (int)cudaErrorInvalidValue;
-  const float *xf = (const float*)x_cl, *of = (const float*)offset, *mf = (const float*)mask,
-              *cf = (const float*)coff, *wf = (const float*)wt, *gf = (const float*)grad_out;
-  if (C % dcn::kSeg == 0 && cg % dcn::kSeg == 0 && (dcn::kCK % cg == 0 || cg % dcn::kCK == 0) &&
-      H <= dcn::bwd::kMaxSide && W <= dcn::bwd::kMaxSide) {
-    const int rc = launch_data(xf, of, mf, cf, wf, gf, (float*)gx_cl, (float*)goff,
-                               (float*)gmask, B, C, H, W, Cout, gd, split, s);
-    if (rc != 0) return rc;
+  int rc;
+  if (dtype == 0) {
+    rc = bwd_data_tangent<float>(x_cl, offset, mask, coff, wt, grad_out, (float*)gsc, goff,
+                                 gmask, B, C, H, W, Cout, gd, split, s);
+  } else if (dtype == 1) {
+    rc = bwd_data_tangent<__nv_bfloat16>(x_cl, offset, mask, coff, wt, grad_out, (float*)gsc,
+                                         goff, gmask, B, C, H, W, Cout, gd, split, s);
+    const int64_t n = (int64_t)B * H * W * C;
+    if (rc == 0 && n > 0)
+      to_bf16<<<(unsigned)std::max<int64_t>(1, std::min<int64_t>((n + 255) / 256, 4096)), 256,
+                0, s>>>((const float*)gsc, (__nv_bfloat16*)gx_cl, n);
   } else {
-    const int64_t threads = (int64_t)B * gd * dcn::kTaps * hw;
-    dcn_bwd_data_tangent_kernel_any<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-        xf, of, mf, cf, wf, gf, (float*)gx_cl, (float*)goff, (float*)gmask, B, C, H, W, Cout, gd);
+    return (int)cudaErrorInvalidValue;
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -262,12 +262,12 @@ class MetaModel(VideoBaseModel):
     pixel_weight set MetaConfig; the fed batch carries SLR, LR, LR_center
     and HR_center (cli/train.synthesize_meta_batch).
 
-    EDVR, TOF and DUF meta-train to second order on the kernels. The
+    EDVR, TOF and DUF meta-train to second order on the kernels, in fp32
+    or bf16 (an EDVR net in bf16, as EDVR-L's configs set it, runs K1-K3
+    and K8-K10 in bf16; a DUF net in bf16 runs K6 / K7 on its bf16 filters). The
     optimizer steps meta_variables(netG): the parameters and the BatchNorm
     running statistics (TOF, DUF), whose Adam moments the `.state` file
-    keeps. Second order in bf16 through the DCN or the dynamic filter (an
-    EDVR or DUF net in bf16 with first_order false) raises (no bf16 second
-    order yet) rather than train to first order silently."""
+    keeps."""
 
     def __init__(self, opt: Mapping, device=None):
         super().__init__(opt, device)
@@ -277,16 +277,6 @@ class MetaModel(VideoBaseModel):
             inner_steps=t.get("maml_adapt_iter") or 1,
             first_order=bool(t.get("first_order", False)),
             pixel_weight=t.get("pixel_weight") or 1.0)
-        net = opt.get("network_G") or {}
-        if net.get("which_model_G") == "EDVR" and net.get("dtype") not in (None, "float32"):
-            raise NotImplementedError(
-                f"meta-training EDVR in {net.get('dtype')}: the DCN's second-order kernels take "
-                "float32 (no bf16 second order yet)")
-        if (self.netG.arch == "DUF" and net.get("dtype") not in (None, "float32")
-                and not self.meta_cfg.first_order):
-            raise NotImplementedError(
-                f"second-order meta-training of DUF in {net.get('dtype')}: the dynamic filter's "
-                "second order takes float32 filters (no bf16 second order yet)")
         self._meta_step = None
 
     def _trained(self):

@@ -44,10 +44,10 @@ _SIGNATURES = {
     "dcn_fwd": [_VP] * 7 + [_I] * 7 + [_VP],
     "dcn_bwd_data": [_VP] * 9 + [_I] * 7 + [_VP],
     "dcn_bwd_weight": [_VP] * 6 + [_I] * 7 + [_VP],
-    "dcn_fwd_tangent": [_VP] * 7 + [_I] * 7 + [_VP],
-    "dcn_fwd_tangent_splits": [_I] * 6,
-    "dcn_bwd_weight_tangent": [_VP] * 7 + [_I] * 6 + [_VP],
-    "dcn_bwd_data_tangent": [_VP] * 9 + [_I] * 7 + [_VP],
+    "dcn_fwd_tangent": [_VP] * 7 + [_I] * 8 + [_VP],
+    "dcn_fwd_tangent_splits": [_I] * 7,
+    "dcn_bwd_weight_tangent": [_VP] * 7 + [_I] * 7 + [_VP],
+    "dcn_bwd_data_tangent": [_VP] * 10 + [_I] * 8 + [_VP],
     "warp_fwd": [_VP] * 3 + [_I] * 4 + [_VP],
     "warp_bwd": [_VP] * 5 + [_I] * 4 + [_VP],
     "warp_bwd_tangent": [_VP] * 7 + [_I] * 4 + [_VP],

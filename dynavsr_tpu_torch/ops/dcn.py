@@ -6,12 +6,13 @@ kernels of csrc/ — K1 `dcn_fwd`, K2 `dcn_bwd_data`, K3 `dcn_bwd_weight` —
 through `DeformConv2dFunction`; a CPU tensor always goes to the plain
 version (ops/dcn_ref.py). Nothing falls back from one to the other.
 
-Second order (meta-training's grad of a gradient, fp32): the backward runs
-K2 and K3 through `DcnBwdDataFunction` and `DcnBwdWeightFunction`, whose
-own backward is K1-K3 again on other inputs plus the terms along the
-offset cotangent, K8 `dcn_fwd_tangent`, K9 `dcn_bwd_weight_tangent` and K10
-`dcn_bwd_data_tangent` (csrc/dcn_tangent.cu). A first-order backward
-launches K2 and K3 once each, as before; a third backward raises.
+Second order (meta-training's grad of a gradient, fp32 or bf16): the
+backward runs K2 and K3 through `DcnBwdDataFunction` and
+`DcnBwdWeightFunction`, whose own backward is K1-K3 again on other inputs
+plus the terms along the offset cotangent, K8 `dcn_fwd_tangent`, K9
+`dcn_bwd_weight_tangent` and K10 `dcn_bwd_data_tangent`
+(csrc/dcn_tangent.cu), all in x's dtype. A first-order backward launches
+K2 and K3 once each, as before; a third backward raises.
 
 Each launcher adds one to its module-level count where it launches its
 kernel (`fwd_launches`, `bwd_data_launches`, `bwd_weight_launches`,
@@ -184,13 +185,10 @@ def dcn_bwd_weight(x, offset, mask, grad_out, deformable_groups: int) -> torch.T
 _SECOND_ORDER = "K1-K3, K8-K10 (the DCN's second order)"
 
 
-def _tangent_args(x, offset, mask, coff, gd: int, cout: int, name: str, **tensors):
+def _tangent_args(x, offset, mask, coff, gd: int, cout: int, **tensors):
     """Checked inputs of K8-K10: x channels-last (a library copy when it is
-    not; the autograd passes K1's), the rest contiguous; fp32 only."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{name} takes float32 (the meta configs' dtype); a bf16 second order through the "
-            "DCN is not ported yet")
+    not; the autograd passes K1's), the rest contiguous, all in one of
+    float32 / bfloat16."""
     x = x.contiguous(memory_format=torch.channels_last)
     coff = coff.contiguous()
     tensors = {k: v.contiguous() for k, v in tensors.items()}
@@ -199,33 +197,40 @@ def _tangent_args(x, offset, mask, coff, gd: int, cout: int, name: str, **tensor
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_tangent_splits(b: int, c: int, h: int, w: int, cout: int, gd: int, device: int) -> int:
-    """How many blocks K8 splits a tile's taps over at this shape on the
-    card with index `device` (1, 3 or 9; the launcher's choice, asked once
-    a shape and card)."""
+def fwd_tangent_splits(b: int, c: int, h: int, w: int, cout: int, gd: int, device: int,
+                       dtype: torch.dtype = torch.float32) -> int:
+    """How many blocks K8 splits a tile's taps over at this shape and dtype
+    on the card with index `device` (1, 3 or 9; the launcher's choice,
+    asked once a shape and card)."""
     with torch.cuda.device(device):
-        return _build.load("dcn_tangent").dcn_fwd_tangent_splits(b, c, h, w, cout, gd)
+        return _build.load("dcn_tangent").dcn_fwd_tangent_splits(b, c, h, w, cout, gd,
+                                                                 _DTYPES[dtype])
 
 
 def dcn_fwd_tangent(x, offset, mask, weight, coff, deformable_groups: int) -> torch.Tensor:
     """K8: W . (m x the derivative of the bilinear sample along coff), (B,
-    Cout, H, W), no bias, on fp32 CUDA tensors. Where the launcher splits a
-    tile's taps over blocks, the splits past the first sum into a scratch
-    that a second pass adds to the output in a fixed order."""
+    Cout, H, W), no bias, on CUDA tensors in x's dtype (in bf16 the tangent
+    columns are rounded to bf16, as K1 rounds its columns). Where the
+    launcher splits a tile's taps over blocks, the splits sum into an fp32
+    scratch that a second pass adds up in a fixed order (fp32: the splits
+    past the first, into the output; bf16: all, rounded once)."""
     global fwd_tangent_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
-    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
-                               "K8 dcn_fwd_tangent", weight=weight)
-    wt = t["weight"].permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout, weight=weight)
+    if x.dtype == torch.bfloat16:  # K1's layouts: the tensor-core B operand [o][c] per tap
+        wt = t["weight"].permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
+    else:
+        wt = t["weight"].permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-    split = fwd_tangent_splits(b, c, h, w, cout, deformable_groups, x.get_device())
-    part = None if split == 1 else torch.empty((split - 1) * out.numel(), dtype=x.dtype,
+    split = fwd_tangent_splits(b, c, h, w, cout, deformable_groups, x.get_device(), x.dtype)
+    parts = split - (x.dtype == torch.float32)
+    part = None if split == 1 else torch.empty(parts * out.numel(), dtype=torch.float32,
                                                device=x.device)
     rc = _build.load("dcn_tangent").dcn_fwd_tangent(
         x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), wt.data_ptr(),
         out.data_ptr(), _ptr(part), b, c, h, w, cout, deformable_groups, split,
-        _build.stream(x))
+        _DTYPES[x.dtype], _build.stream(x))
     _build.raise_if(rc, "dcn_fwd_tangent")
     fwd_tangent_launches += 1
     return out
@@ -234,18 +239,20 @@ def dcn_fwd_tangent(x, offset, mask, weight, coff, deformable_groups: int) -> to
 def dcn_bwd_weight_tangent(x, offset, mask, grad_out, coff, deformable_groups: int
                            ) -> torch.Tensor:
     """K9: sum over pixels of grad_out (x) the tangent columns, (Cout, C, 3,
-    3), on fp32 CUDA tensors. Blocks sum with atomics into a (9, Cout, C)
-    scratch, which a second pass writes out."""
+    3), on CUDA tensors in x's dtype (in bf16 the tangent columns are
+    rounded to bf16, as K3 rounds its columns). Blocks sum with atomics into
+    an fp32 (9, Cout, C) scratch, which a second pass writes out."""
     global bwd_weight_tangent_launches
     b, c, h, w = x.shape
     cout = grad_out.shape[1]
     x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
-                               "K9 dcn_bwd_weight_tangent", grad_out=grad_out)
+                               grad_out=grad_out)
     gsc = torch.empty(9 * cout * c, dtype=torch.float32, device=x.device)
     gw = torch.empty((cout, c, 3, 3), dtype=x.dtype, device=x.device)
     rc = _build.load("dcn_tangent").dcn_bwd_weight_tangent(
         x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), t["grad_out"].data_ptr(),
-        gsc.data_ptr(), gw.data_ptr(), b, c, h, w, cout, deformable_groups, _build.stream(x))
+        gsc.data_ptr(), gw.data_ptr(), b, c, h, w, cout, deformable_groups, _DTYPES[x.dtype],
+        _build.stream(x))
     _build.raise_if(rc, "dcn_bwd_weight_tangent")
     bwd_weight_tangent_launches += 1
     return gw
@@ -253,23 +260,30 @@ def dcn_bwd_weight_tangent(x, offset, mask, grad_out, coff, deformable_groups: i
 
 def dcn_bwd_data_tangent(x, offset, mask, weight, grad_out, coff, deformable_groups: int):
     """K10: the gradient of <W^T . grad_out, tangent columns> with respect
-    to (x, offset, mask), on fp32 CUDA tensors; grad x comes back NCHW-shaped
-    with channels-last strides, grad mask None without a mask. The offset
-    and mask gradients are stored once each (no atomics: bitwise the same
-    from run to run); grad x is summed with atomics."""
+    to (x, offset, mask), on CUDA tensors in x's dtype (gc = W^T . grad_out
+    in fp32, as in K2); grad x comes back NCHW-shaped with channels-last
+    strides, grad mask None without a mask. The offset and mask gradients
+    are stored once each (no atomics: bitwise the same from run to run);
+    grad x is summed with atomics into an fp32 channels-last scratch (in
+    fp32 the output itself; in bf16 written out once by the launcher)."""
     global bwd_data_tangent_launches
     b, c, h, w = x.shape
     cout = weight.shape[0]
-    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout,
-                               "K10 dcn_bwd_data_tangent", weight=weight, grad_out=grad_out)
-    wt = t["weight"].permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
+    x, coff, t = _tangent_args(x, offset, mask, coff, deformable_groups, cout, weight=weight,
+                               grad_out=grad_out)
+    if x.dtype == torch.bfloat16:  # K2's layouts: the tensor-core B operand [c][o] per tap
+        wt = t["weight"].permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    else:
+        wt = t["weight"].permute(2, 3, 0, 1).reshape(9, cout, c).contiguous()
     gx = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+    gsc = gx if x.dtype == torch.float32 else torch.empty((b, h, w, c), dtype=torch.float32,
+                                                          device=x.device)
     goff = torch.empty_like(offset)
     gmask = None if mask is None else torch.empty_like(mask)
     rc = _build.load("dcn_tangent").dcn_bwd_data_tangent(
         x.data_ptr(), offset.data_ptr(), _ptr(mask), coff.data_ptr(), wt.data_ptr(),
-        t["grad_out"].data_ptr(), gx.data_ptr(), goff.data_ptr(), _ptr(gmask), b, c, h, w,
-        cout, deformable_groups, 0, _build.stream(x))
+        t["grad_out"].data_ptr(), gsc.data_ptr(), gx.data_ptr(), goff.data_ptr(), _ptr(gmask),
+        b, c, h, w, cout, deformable_groups, 0, _DTYPES[x.dtype], _build.stream(x))
     _build.raise_if(rc, "dcn_bwd_data_tangent")
     bwd_data_tangent_launches += 1
     return gx.permute(0, 3, 1, 2), goff, gmask
@@ -336,9 +350,6 @@ class DcnBwdDataFunction(torch.autograd.Function):
         x_cl, offset, mask, weight, go = ctx.saved_tensors
         need, gd = ctx.needs_input_grad, ctx.gd
         cx, coff, cm = _cotangents(cx, coff, None if mask is None else cm)
-        if x_cl.dtype != torch.float32 and any(t is not None for t in (cx, coff, cm)):
-            raise NotImplementedError("the DCN's second order takes float32; there is no "
-                                      "bf16 second order yet")
         weight = weight.contiguous()
         gx = goff = gmask = gw = ggo = None
         if cx is not None:
@@ -398,9 +409,6 @@ class DcnBwdWeightFunction(torch.autograd.Function):
         (cw,) = _cotangents(cw)
         if cw is None:
             return None, None, None, None, None, None
-        if x_cl.dtype != torch.float32:
-            raise NotImplementedError("the DCN's second order takes float32; there is no "
-                                      "bf16 second order yet")
         cw = cw.contiguous()
         gx = goff = gmask = ggo = None
         if need[3]:

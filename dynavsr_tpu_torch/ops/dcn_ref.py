@@ -8,7 +8,8 @@ Bilinear sampling where each corner outside the image contributes zero
 (dy, dx) per (deformable group, tap): channel 2*(g*K + k) is dy and
 2*(g*K + k) + 1 is dx. Sampling positions are fp32 for every input dtype;
 the columns (mask x bilinear sample) are formed in fp32, and the
-contraction accumulates in fp32; the result is returned in x's dtype.
+contraction accumulates in fp32; the result is returned in x's dtype. A
+float64 x (a reference run) computes everything in float64.
 With `compute_dtype=torch.bfloat16` the columns and the weights are rounded
 to bf16 before the contraction: K1's function in bf16 (its tensor-core
 product takes bf16 operands), and the rounding point of JAX's
@@ -20,7 +21,7 @@ rounded ones (K3's function, and JAX's, whose weight gradient sees its cast
 columns). Its autograd is the CPU backward and the oracle the CUDA kernels
 (ops/dcn.py) are held against.
 
-The second order (3x3, stride 1, padding 1, fp32): a double backward of the
+The second order (3x3, stride 1, padding 1): a double backward of the
 DCN needs, besides K1-K3 on other inputs, the terms along a cotangent
 `coff` of the offsets. With the tangent columns
 
@@ -35,7 +36,15 @@ gc * m * h * (coff_x, coff_y), h = x00 - x01 - x10 + x11 being the only
 nonzero second derivative of the bilinear sample (d2/dy dx); the mask gets
 sum_c gc * D_coff bilinear(x). They are explicit formulas, for the tests
 and for holding the kernels on the card; the CPU path differentiates
-`deform_conv2d_ref` itself.
+`deform_conv2d_ref` itself. With `compute_dtype=torch.bfloat16` they are
+K8-K10's bf16 function, at K1-K3's rounding points: the tangent columns are
+formed in fp32 and rounded to bf16 before the products of K8 (against the
+bf16-rounded weight) and K9 (against grad_out), as K1 and K3 round their
+columns; K10's gc = W^T . grad_out is the fp32 product of the rounded
+weight, as K2's is; sums are fp32 and the results come back in x's dtype.
+The double autograd of `deform_conv2d_ref(..., compute_dtype=bf16)` takes
+the tangent columns unrounded (its rounding is straight-through), so the
+two differ by one bf16 rounding of those columns.
 """
 
 from __future__ import annotations
@@ -81,7 +90,7 @@ def deform_conv2d_ref(
     cg = cin // gd
     ho = _out_size(h, kh, stride, padding, dilation)
     wo = _out_size(w, kw, stride, padding, dilation)
-    f32 = torch.float32
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
     dev = x.device
 
     oy = torch.arange(ho, dtype=f32, device=dev) * stride - padding
@@ -117,7 +126,7 @@ def deform_conv2d_ref(
         cols = cols * mask.to(f32).view(b, gd, 1, k, ho, wo)
     cols = cols.reshape(b, cin, k, ho * wo)
     wmat = weight.to(f32).reshape(cout, cin, k)
-    if compute_dtype is not None and compute_dtype != f32:
+    if compute_dtype is not None and compute_dtype not in (torch.float32, torch.float64):
         cols, wmat = _round_through(cols, compute_dtype), _round_through(wmat, compute_dtype)
     out = torch.einsum("bckp,ock->bop", cols, wmat)
     if bias is not None:
@@ -131,13 +140,27 @@ _CORNERS = ((0, 0, -1.0, -1.0, 1.0), (0, 1, -1.0, 1.0, -1.0), (1, 0, 1.0, -1.0, 
             (1, 1, 1.0, 1.0, 1.0))
 
 
+def _acc(x):
+    """The dtype the tangent formulas compute in: float64 for a float64 x
+    (a reference run), else fp32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _rounded(t, compute_dtype):
+    """t rounded to compute_dtype and back, where that is bf16 (K8 / K9's
+    tensor-core operands); else t."""
+    if compute_dtype is None or compute_dtype in (torch.float32, torch.float64):
+        return t
+    return t.to(compute_dtype).to(t.dtype)
+
+
 def _tangent_corners(x, offset, coff, gd):
     """Per corner of every (pixel, tap, group) sample of a 3x3 / stride 1 /
     padding 1 DCN: (flat index into the (H*W) plane, clamped; its values
     (B, Gd, Cg, 9, P) x inside; its tangent weight coff . dw/dpos
     (B, Gd, 1, 9, P) x inside; its sign in h x inside)."""
     b, c, h, w = x.shape
-    f32, dev, k = torch.float32, x.device, 9
+    f32, dev, k = _acc(x), x.device, 9
     p = h * w
     oy = torch.arange(h, dtype=f32, device=dev).view(h, 1).expand(h, w).reshape(p)
     ox = torch.arange(w, dtype=f32, device=dev).view(1, w).expand(h, w).reshape(p)
@@ -165,45 +188,52 @@ def _tangent_corners(x, offset, coff, gd):
     return out
 
 
-def _mask5(mask, b, gd, p):
-    return None if mask is None else mask.to(torch.float32).view(b, gd, 1, 9, p)
+def _mask5(mask, b, gd, p, dtype=torch.float32):
+    return None if mask is None else mask.to(dtype).view(b, gd, 1, 9, p)
 
 
 def _tangent_cols(x, offset, mask, coff, gd):
     """tcol (B, C, 9, P): m x the derivative of the bilinear sample along coff."""
     b, c, h, w = x.shape
     tcol = sum(vals * tw for _, vals, tw, _ in _tangent_corners(x, offset, coff, gd))
-    m = _mask5(mask, b, gd, h * w)
+    m = _mask5(mask, b, gd, h * w, _acc(x))
     if m is not None:
         tcol = tcol * m
     return tcol.reshape(b, c, 9, h * w)
 
 
-def dcn_fwd_tangent_ref(x, offset, mask, weight, coff, deformable_groups: int = 1):
-    """K8's function: W . tcol, (B, Cout, H, W), no bias."""
+def dcn_fwd_tangent_ref(x, offset, mask, weight, coff, deformable_groups: int = 1,
+                        compute_dtype=None):
+    """K8's function: W . tcol, (B, Cout, H, W), no bias (compute_dtype
+    bf16: both rounded to bf16 first)."""
     b, c, h, w = x.shape
-    tcol = _tangent_cols(x, offset, mask, coff, deformable_groups)
-    out = torch.einsum("bckp,ock->bop", tcol, weight.to(torch.float32).reshape(-1, c, 9))
+    f = _acc(x)
+    tcol = _rounded(_tangent_cols(x, offset, mask, coff, deformable_groups), compute_dtype)
+    wmat = _rounded(weight.to(f).reshape(-1, c, 9), compute_dtype)
+    out = torch.einsum("bckp,ock->bop", tcol, wmat)
     return out.reshape(b, -1, h, w).to(x.dtype)
 
 
-def dcn_bwd_weight_tangent_ref(x, offset, mask, grad_out, coff, deformable_groups: int = 1):
-    """K9's function: sum over pixels of grad_out (x) tcol, (Cout, C, 3, 3)."""
+def dcn_bwd_weight_tangent_ref(x, offset, mask, grad_out, coff, deformable_groups: int = 1,
+                               compute_dtype=None):
+    """K9's function: sum over pixels of grad_out (x) tcol, (Cout, C, 3, 3)
+    (compute_dtype bf16: tcol rounded to bf16 first)."""
     b, c, h, w = x.shape
-    tcol = _tangent_cols(x, offset, mask, coff, deformable_groups)
-    go = grad_out.to(torch.float32).reshape(b, -1, h * w)
+    tcol = _rounded(_tangent_cols(x, offset, mask, coff, deformable_groups), compute_dtype)
+    go = grad_out.to(_acc(x)).reshape(b, -1, h * w)
     return torch.einsum("bckp,bop->ock", tcol, go).reshape(-1, c, 3, 3).to(x.dtype)
 
 
 def dcn_bwd_data_tangent_ref(x, offset, mask, weight, grad_out, coff,
-                             deformable_groups: int = 1):
+                             deformable_groups: int = 1, compute_dtype=None):
     """K10's function: the gradient of <W^T . grad_out, tcol> with respect
-    to (x, offset, mask); grad mask is None when mask is None."""
+    to (x, offset, mask); grad mask is None when mask is None
+    (compute_dtype bf16: W rounded to bf16 in gc)."""
     b, c, h, w = x.shape
-    gd, p, f32 = deformable_groups, h * w, torch.float32
-    gc = torch.einsum("ock,bop->bckp", weight.to(f32).reshape(-1, c, 9),
+    gd, p, f32 = deformable_groups, h * w, _acc(x)
+    gc = torch.einsum("ock,bop->bckp", _rounded(weight.to(f32).reshape(-1, c, 9), compute_dtype),
                       grad_out.to(f32).reshape(b, -1, p)).reshape(b, gd, c // gd, 9, p)
-    m = _mask5(mask, b, gd, p)
+    m = _mask5(mask, b, gd, p, f32)
     gcm = gc if m is None else gc * m
     cof = coff.to(f32).view(b, gd, 9, 2, p)
     gx = torch.zeros(b, gd, c // gd, p, dtype=f32, device=x.device)

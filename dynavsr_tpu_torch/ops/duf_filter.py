@@ -12,9 +12,12 @@ the filters' dtype.
 Second order (DUF's meta-training, a gradient of a gradient): the filter
 is bilinear in (x, filters), so the backward runs K7 through
 `DufBwdFunction`, whose own backward is K6 / K7 again with their inputs
-swapped; no other kernel is needed. It takes fp32 filters and cotangents
-(bf16 raises: no bf16 second order yet). A first-order backward
-launches K7 once, as before; a third backward raises.
+swapped; no other kernel is needed. With bf16 filters (DUF in bf16 mode)
+the filter cotangent is bf16 too, and K6 / K7 take it as they take bf16
+filters: fp32 sums, x and its gradients fp32, grad filters bf16, JAX's
+rounding points for `dynamic_upsampling_filter` (an fp32-accumulated
+product, its output in x's dtype). A first-order backward launches K7
+once, as before; a third backward raises.
 
 Layout: NCHW planes, the port's DUF's own (see duf_filter_ref.py).
 
@@ -144,8 +147,9 @@ class DufBwdFunction(torch.autograd.Function):
       grad_out <- K6(Cx, filters) + K6(x, Cf)
       filters  <- K7(x:=Cx, filters, grad_out).grad_filters
       x        <- K7(x, filters:=Cf, grad_out).grad_x
-    A cotangent that is None or all zero skips its launches; fp32 only. A
-    third backward raises."""
+    A cotangent that is None or all zero skips its launches; Cf is in the
+    filters' dtype (fp32 or bf16), Cx in x's (fp32). A third backward
+    raises."""
 
     @staticmethod
     def forward(ctx, x, filters, grad_out, need_x):
@@ -160,10 +164,6 @@ class DufBwdFunction(torch.autograd.Function):
         x, filters, go = ctx.saved_tensors
         need = ctx.needs_input_grad
         cx, cf = _build.cotangents(cx, cf)
-        present = [t for t in (cx, cf) if t is not None]
-        if present and any(t.dtype == torch.bfloat16 for t in (filters, *present)):
-            raise NotImplementedError("the dynamic filter's second order takes float32 filters; "
-                                      "no bf16 second order yet")
         gx = gf = ggo = None
         if cx is not None:
             cx = cx.contiguous()

@@ -10,7 +10,9 @@ For each kernel at the call sizes of its path (synthetic inputs from a
 seed: x, white-noise flows N(0, 1) px, softmaxed filters, N(0, 1) output
 gradients; for the DCN, 40 frames x 64 channels, Gd 8, at the meta inner
 step's pyramid levels 16x16, 8x8 and 4x4, offsets N(0, 0.5^2) px, masks
-U(0, 1), offset cotangents N(0, 1)):
+U(0, 1), offset cotangents N(0, 1); K8-K10 also in bf16 there and at
+EDVR-L's inner step, 10 frames x 128 channels at 8x8, 4x4 and 2x2, fp32 and
+bf16):
   ms         CUDA events around 20 back-to-back wrapper calls, the number
              chip_smoke.py's `ms` is (for calls of a few us it measures the
              host);
@@ -45,6 +47,7 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet), as chip_smoke.py.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # off the tensor cores (TF32 off)
+BF16_FLOPS = 989e12  # dense, on the tensor cores
 REPS = 20
 
 
@@ -139,6 +142,9 @@ def dcn_times(timed, emit, gen) -> None:
 
     b, c, gd = 40, 64, 8
     new = hasattr(dcn, "fwd_tangent_splits")  # a tree with the split argument
+    # A tree whose K8-K10 take bf16 (their C entries take a dtype, K10 an fp32 scratch).
+    bf16 = new and "dtype" in inspect.signature(dcn.fwd_tangent_splits).parameters
+    dt_arg = (0,) if bf16 else ()
     # K1 at EDVR's inference call (40 x 144x176) and K2 / K3 at its
     # adaptation call (40 x 36x44), fp32 and bf16 (chip_smoke.py's phase 7
     # shapes), so that a change to the shared DCN code shows there too.
@@ -214,19 +220,20 @@ def dcn_times(timed, emit, gen) -> None:
         gx = torch.empty(b, h, h, c, device="cuda")
         goff, gmask = torch.empty_like(offset), torch.empty_like(mask)
         chosen = dcn.fwd_tangent_splits(b, c, h, h, c, gd, x.get_device())
+        gsc = (gx.data_ptr(),) if bf16 else ()  # fp32: grad x sums into the output itself
         for split in (1, 3, 9):
             def k8(split=split):
                 _build.raise_if(lib.dcn_fwd_tangent(
                     x_cl.data_ptr(), offset.data_ptr(), mask.data_ptr(), coff.data_ptr(),
                     wt8.data_ptr(), out.data_ptr(), part.data_ptr(), b, c, h, h, c, gd, split,
-                    _build.stream(x)), "dcn_fwd_tangent")
+                    *dt_arg, _build.stream(x)), "dcn_fwd_tangent")
                 return out
 
             def k10(split=split):
                 _build.raise_if(lib.dcn_bwd_data_tangent(
                     x_cl.data_ptr(), offset.data_ptr(), mask.data_ptr(), coff.data_ptr(),
-                    wt10.data_ptr(), cot.data_ptr(), gx.data_ptr(), goff.data_ptr(),
-                    gmask.data_ptr(), b, c, h, h, c, gd, split, _build.stream(x)),
+                    wt10.data_ptr(), cot.data_ptr(), *gsc, gx.data_ptr(), goff.data_ptr(),
+                    gmask.data_ptr(), b, c, h, h, c, gd, split, *dt_arg, _build.stream(x)),
                     "dcn_bwd_data_tangent")
                 return gx, goff, gmask
 
@@ -236,9 +243,10 @@ def dcn_times(timed, emit, gen) -> None:
                   calls["dcn_bwd_data_tangent"][1], None, rtol=(1e-5, 0.0, 0.0), flops=flops)
         if h == 16:  # K10's wrapper, piece by piece
             fn = lib.dcn_bwd_data_tangent
+            name_arg = () if bf16 else ("K10",)
             pieces = {
                 "tangent_args": lambda: dcn._tangent_args(
-                    x_cl, offset, mask, coff, gd, c, "K10", weight=weight, grad_out=cot),
+                    x_cl, offset, mask, coff, gd, c, *name_arg, weight=weight, grad_out=cot),
                 "weight permute": lambda: weight.permute(2, 3, 0, 1).reshape(9, c, c)
                 .contiguous(),
                 "empty x3": lambda: (torch.empty((b, h, h, c), device=x.device),
@@ -246,13 +254,64 @@ def dcn_times(timed, emit, gen) -> None:
                 "build.load": lambda: _build.load("dcn_tangent"),
                 "ctypes launch": lambda: fn(
                     x_cl.data_ptr(), offset.data_ptr(), mask.data_ptr(), coff.data_ptr(),
-                    wt10.data_ptr(), cot.data_ptr(), gx.data_ptr(), goff.data_ptr(),
-                    gmask.data_ptr(), b, c, h, h, c, gd, 0, _build.stream(x)),
+                    wt10.data_ptr(), cot.data_ptr(), *gsc, gx.data_ptr(), goff.data_ptr(),
+                    gmask.data_ptr(), b, c, h, h, c, gd, 0, *dt_arg, _build.stream(x)),
                 "wrapper": lambda: dcn.dcn_bwd_data_tangent(x_cl, offset, mask, weight, cot,
                                                             coff, gd),
             }
             emit(dict(name="dcn_bwd_data_tangent", label=f"host pieces {label}",
                       host_us={k: host_us(f) for k, f in pieces.items()}))
+    if bf16:
+        tangent_times(timed, gen)
+
+
+# K8-K10's calls in a bf16 meta update: EDVR-M's inner step (10c, 40 frames
+# x 64 channels) and EDVR-L's (2 windows x 5 frames x 128 channels, SLR 8x8
+# and its pyramid), Gd 8; EDVR-L's also in fp32.
+TANGENT_SETS = ((40, 64, (16, 8, 4), (torch.bfloat16,)),
+                (10, 128, (8, 4, 2), (torch.float32, torch.bfloat16)))
+
+
+def tangent_times(timed, gen) -> None:
+    """K8-K10's wrappers at TANGENT_SETS. Bytes: each input read once,
+    each output written once, in the dtype; operations: the 2 B HW C Cout 9
+    product at the dtype's peak (bf16 on the tensor cores)."""
+    from dynavsr_tpu_torch.ops import dcn
+
+    gd = 8
+    for b, c, sizes, dtypes in TANGENT_SETS:
+        for h in sizes:
+            for dtype in dtypes:
+                def rnd(*s, scale=1.0):
+                    return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
+
+                x_cl = rnd(b, c, h, h).contiguous(memory_format=torch.channels_last)
+                offset = rnd(b, 2 * gd * 9, h, h, scale=0.5)
+                mask = torch.rand(b, gd * 9, h, h, generator=gen, device="cuda").to(dtype)
+                weight = rnd(c, c, 3, 3, scale=1.0 / (c * 9) ** 0.5)
+                cot, coff = rnd(b, c, h, h), rnd(*offset.shape)
+                px, e = b * h * h, torch.finfo(dtype).bits // 8
+                xb, ob, mb, wb = px * c * e, px * 2 * gd * 9 * e, px * gd * 9 * e, c * c * 9 * e
+                flops = 2 * px * c * c * 9
+                peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+                # Graph replays: K8 and K10's offset / mask gradients bitwise;
+                # K9 and K10's grad x by fp32 atomics (bf16: then one rounding).
+                tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+                label = f"meta {b}x{h}x{h} C{c} {str(dtype).replace('torch.', '')}"
+                calls = {
+                    "dcn_fwd_tangent": (
+                        lambda: dcn.dcn_fwd_tangent(x_cl, offset, mask, weight, coff, gd),
+                        xb + 2 * ob + mb + wb + px * c * e, 0.0),
+                    "dcn_bwd_weight_tangent": (
+                        lambda: dcn.dcn_bwd_weight_tangent(x_cl, offset, mask, cot, coff, gd),
+                        xb + 2 * ob + mb + px * c * e + wb, tol),
+                    "dcn_bwd_data_tangent": (
+                        lambda: dcn.dcn_bwd_data_tangent(x_cl, offset, mask, weight, cot, coff,
+                                                         gd),
+                        2 * xb + 3 * ob + 2 * mb + wb + px * c * e, (tol, 0.0, 0.0)),
+                }
+                for name, (fn, nbytes, rtol) in calls.items():
+                    timed(name, label, fn, nbytes, None, rtol=rtol, flops=flops, peak=peak)
 
 
 def main() -> None:
@@ -286,12 +345,12 @@ def main() -> None:
         rows.append(row)
         print(json.dumps(row))
 
-    def timed(name, label, fn, nbytes, kernel, rtol=0.0, flops=0, **extra):
+    def timed(name, label, fn, nbytes, kernel, rtol=0.0, flops=0, peak=FP32_FLOPS, **extra):
         ms = event_ms(fn)
         kernel_ms, seen = graph_ms(fn, kernel=kernel, rtol=rtol)
         if kernel is not None and seen not in (0, REPS):  # 0: no kernel seen inside a graph
             raise RuntimeError(f"{name} {label}: the graph holds {seen} launches, not {REPS}")
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         bound = max(t_bytes, t_ops)
         emit(dict(name=name, label=label, ms=ms, kernel_ms=kernel_ms, host_us=host_us(fn),
                   bound_ms=bound, bound_by="bytes" if t_bytes >= t_ops else "operations",

@@ -30,6 +30,7 @@ from dynavsr_tpu_torch.convert.from_jax import jax_params_to_state_dict
 from dynavsr_tpu_torch.models.downscaler import MFDN
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.models.padding import make_model_apply
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = dict(nf=8, nframes=3, groups=2, front_RBs=1, back_RBs=1)
 T, H, W, N_ADAPT = 6, 16, 20, 4

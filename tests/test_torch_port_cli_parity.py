@@ -26,6 +26,7 @@ import torch
 from dynavsr_tpu_torch.models.downscaler import SFDN
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.train.checkpoint import save_network
+from torch_one_thread import one_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

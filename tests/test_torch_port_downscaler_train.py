@@ -47,6 +47,7 @@ from dynavsr_tpu_torch.data.lmdb_native import LmdbWriter
 from dynavsr_tpu_torch.models.downscaler import MFDN
 from dynavsr_tpu_torch.models.video_base_model import DownscalerModel, create_model
 from dynavsr_tpu_torch.train.checkpoint import save_network
+from torch_one_thread import one_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

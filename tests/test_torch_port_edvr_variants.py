@@ -22,6 +22,7 @@ from dynavsr_tpu.data.windows import all_windows
 from dynavsr_tpu.models.edvr import EDVR as JaxEDVR
 from dynavsr_tpu_torch.convert.from_jax import jax_params_to_state_dict
 from dynavsr_tpu_torch.models.networks import define_G
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = dict(nf=8, nframes=3, groups=2, front_RBs=1, back_RBs=1)
 VARIANTS = {"predeblur": dict(predeblur=True), "hr_in": dict(hr_in=True),

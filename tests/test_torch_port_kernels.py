@@ -2,7 +2,7 @@
 DCN's K1 dcn_fwd, K2 dcn_bwd_data and K3 dcn_bwd_weight (ops/dcn_ref.py),
 the terms of its second order along an offset cotangent, K8
 dcn_fwd_tangent, K9 dcn_bwd_weight_tangent and K10 dcn_bwd_data_tangent
-(ops/dcn_ref.py's *_tangent_ref, fp32 only),
+(ops/dcn_ref.py's *_tangent_ref, fp32 and bf16),
 the bilinear warp's K4 warp_fwd and K5 warp_bwd (ops/grid_sample_ref.py)
 and its second order's K11 warp_fwd_tangent and K12 warp_bwd_tangent,
 one kernel (grid_sample_ref's *_tangent_ref), and DUF's dynamic upsampling filter K6
@@ -22,7 +22,9 @@ bf16 once, so 2^-7 of the largest reference value. In bf16 the kernels
 are also held against the plain version with bf16 columns and weights
 (`compute_dtype=torch.bfloat16`, their own function): there only the
 summation order and the final rounding differ, so 2^-8 for K1, and 2^-8
-plus the fp32 tolerance for K2 and K3, whose atomics sum in any order. Warp
+plus the fp32 tolerance for K2 and K3, whose atomics sum in any order; the
+same for K8 (as K1) and K9, K10 (as K2, K3) against the tangent formulas
+with `compute_dtype=torch.bfloat16`. Warp
 (fp32 only): forward 1e-5 of the largest reference value (the same four
 products, maybe fused into FMAs); grad flow and grad x 1e-4 (grad x lands
 with atomics, in another order); K11 1e-5, K12 1e-4 (a sum over channels,
@@ -520,16 +522,21 @@ def test_duf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # pixels nor of a tile; a batch of 3 frames of 4x4, less than one tile;
 # frames of 5x5 and 5x3, whose H * W is no multiple of 4, so the tiles that
 # run across frames (K8, K9) pad each frame and straddle frames, on the
-# vector path and, with C = 16 at Gd 8, off it).
+# vector path and, with C = 16 at Gd 8, off it); and EDVR-L's inner step
+# (2 windows x 5 frames of SLR 8x8 at C = Cout = 128: 8x8, 4x4 and 2x2).
 TANGENT_SHAPES = {"meta16": (40, 64, 64, 16, 16), "meta8": (40, 64, 64, 8, 8),
                   "meta4": (40, 64, 64, 4, 4), "small": (3, 8, 6, 9, 7),
                   "wide": (1, 128, 64, 11, 3), "c48": (2, 48, 48, 13, 21),
                   "subtile": (3, 64, 64, 4, 4), "pad5": (40, 64, 64, 5, 5),
-                  "pad5c16": (7, 16, 16, 5, 3)}
+                  "pad5c16": (7, 16, 16, 5, 3), "L8": (10, 128, 128, 8, 8),
+                  "L4": (10, 128, 128, 4, 4), "L2": (10, 128, 128, 2, 2)}
+# (tolerance of K8, of K9 and K10) against the plain formulas in each dtype.
+TANGENT_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -8, 2.0 ** -8 + 1e-4)}
 
 
-def _tangent_inputs(shape, gd, offsets, device):
-    """x, offset, mask, weight, grad_out and the offset cotangent coff.
+def _tangent_inputs(shape, gd, offsets, device, dtype=torch.float32):
+    """x, offset, mask, weight, grad_out and the offset cotangent coff, in
+    `dtype`.
     Offsets: "noise" N(0.37, 2^2) px (many samples partly outside the
     frame), "smooth" (a bilinearly upsampled coarse field of a fraction of a
     pixel, as trained offsets are: most samples inside), "wide" N(0, 4^2)
@@ -544,7 +551,26 @@ def _tangent_inputs(shape, gd, offsets, device):
     elif offsets == "wide":
         offset = (torch.randn(offset.shape, generator=g) * 4.0).to(device)
     coff = torch.randn(offset.shape, generator=g).to(device)
-    return x, offset, mask, weight, cot, coff
+    return [t.to(dtype) for t in (x, offset, mask, weight, cot, coff)]
+
+
+def _tangents_vs_plain(x, offset, mask, weight, cot, coff, gd, tol, compute_dtype):
+    """K8-K10 held against their plain formulas on the same (fp32-read)
+    inputs: K8 within tol[0], K9 and K10 within tol[1]."""
+    args = [None if t is None else t.float() for t in (x, offset, mask, weight, cot, coff)]
+    fx, foff, fmask, fw, fcot, fcoff = args
+    kw = dict(compute_dtype=compute_dtype)
+    got = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, gd)
+    _close(got, dcn_fwd_tangent_ref(fx, foff, fmask, fw, fcoff, gd, **kw), tol[0])
+    got = dcn.dcn_bwd_weight_tangent(x, offset, mask, cot, coff, gd)
+    _close(got, dcn_bwd_weight_tangent_ref(fx, foff, fmask, fcot, fcoff, gd, **kw), tol[1])
+    got = dcn.dcn_bwd_data_tangent(x, offset, mask, weight, cot, coff, gd)
+    want = dcn_bwd_data_tangent_ref(fx, foff, fmask, fw, fcot, fcoff, gd, **kw)
+    for gt, wt in zip(got, want):
+        assert (gt is None) == (wt is None)
+        if wt is not None:
+            assert gt.dtype == x.dtype
+            _close(gt, wt, tol[1])
 
 
 @pytest.mark.gpu
@@ -552,37 +578,36 @@ def _tangent_inputs(shape, gd, offsets, device):
 @pytest.mark.parametrize("gd", [1, 2, 8])
 @pytest.mark.parametrize("offsets", ["noise", "smooth", "wide"])
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "nomask"])
-def test_tangent_kernels_match_plain(cuda, shape, gd, offsets, with_mask):
-    """K8-K10 against their explicit plain formulas, fp32, 1e-4 of the
-    largest reference value (the same products in another order; K9 and
-    K10 sum with atomics)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_tangent_kernels_match_plain(cuda, shape, gd, offsets, with_mask, dtype):
+    """K8-K10 against their explicit plain formulas (TANGENT_TOL): fp32
+    1e-4 of the largest reference value (the same products in another
+    order; K9 and K10 sum with atomics); bf16 against the formulas with
+    bf16 tangent columns and weights on the same bf16 inputs, K8 2^-8, K9
+    and K10 2^-8 + 1e-4 (K1-K3's bf16 tolerances: the final rounding, and
+    the atomics' order)."""
     b, c, cout, h, w = shape
     if c % gd:
         pytest.skip("channels not divisible by the groups")
-    x, offset, mask, weight, cot, coff = _tangent_inputs(shape, gd, offsets, cuda)
+    x, offset, mask, weight, cot, coff = _tangent_inputs(shape, gd, offsets, cuda, dtype)
     if not with_mask:
         mask = None
-    got = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, gd)
-    _close(got, dcn_fwd_tangent_ref(x, offset, mask, weight, coff, gd), 1e-4)
-    got = dcn.dcn_bwd_weight_tangent(x, offset, mask, cot, coff, gd)
-    _close(got, dcn_bwd_weight_tangent_ref(x, offset, mask, cot, coff, gd), 1e-4)
-    got = dcn.dcn_bwd_data_tangent(x, offset, mask, weight, cot, coff, gd)
-    want = dcn_bwd_data_tangent_ref(x, offset, mask, weight, cot, coff, gd)
-    for gt, wt in zip(got, want):
-        assert (gt is None) == (wt is None)
-        if wt is not None:
-            _close(gt, wt, 1e-4)
+    _tangents_vs_plain(x, offset, mask, weight, cot, coff, gd, TANGENT_TOL[dtype],
+                       None if dtype == torch.float32 else dtype)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["meta16", "meta8", "meta4", "c48", "subtile"])
+@pytest.mark.parametrize("name", ["meta16", "meta8", "meta4", "c48", "subtile", "L2"])
 @pytest.mark.parametrize("offsets", ["noise", "wide"])
-def test_tangent_outputs_are_deterministic(cuda, name, offsets):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_tangent_outputs_are_deterministic(cuda, name, offsets, dtype):
     """K8's output (its tap splits summed by a second pass in a fixed
-    order) and K10's offset and mask gradients (summed over each group in
-    shared memory, stored once) are the same bits in two runs; K10's grad x
-    takes atomics, in any order."""
-    x, offset, mask, weight, cot, coff = _tangent_inputs(TANGENT_SHAPES[name], 8, offsets, cuda)
+    order; in bf16 all splits' fp32 partials, rounded once) and K10's
+    offset and mask gradients (summed over each group in shared memory,
+    stored once) are the same bits in two runs; K10's grad x takes
+    atomics, in any order."""
+    x, offset, mask, weight, cot, coff = _tangent_inputs(TANGENT_SHAPES[name], 8, offsets, cuda,
+                                                         dtype)
     out1 = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, 8)
     out2 = dcn.dcn_fwd_tangent(x, offset, mask, weight, coff, 8)
     _, goff1, gmask1 = dcn.dcn_bwd_data_tangent(x, offset, mask, weight, cot, coff, 8)
@@ -593,11 +618,20 @@ def test_tangent_outputs_are_deterministic(cuda, name, offsets):
 
 
 @pytest.mark.gpu
-def test_tangent_wrappers_refuse_bf16(cuda):
-    x, offset, mask, weight, _, cot = _inputs(2, 16, 16, 8, 12, 2, cuda, seed=3)
-    with pytest.raises(NotImplementedError, match="bf16 second order"):
-        dcn.dcn_fwd_tangent(x.bfloat16(), offset.bfloat16(), mask.bfloat16(),
-                            weight.bfloat16(), offset.bfloat16(), 2)
+@pytest.mark.parametrize("name", ["meta16", "meta8", "meta4", "L8", "L4", "L2"])
+def test_bf16_tangent_kernels_at_the_meta_shapes(cuda, name):
+    """bf16 K8-K10 at the calls of a bf16 meta update (EDVR-M's inner step,
+    40 x 64 x {16, 8, 4}^2, and EDVR-L's, 10 x 128 x {8, 4, 2}^2, Gd 8, on
+    trained-like smooth offsets): against the plain formulas with bf16
+    tangent columns and weights at TANGENT_TOL's bf16 bounds, and against
+    the fp32 formulas on the same bf16 inputs within 2^-7 of the largest
+    value (phase 3's bound for K1-K3 against fp32: the bf16 columns and one
+    rounding of the result)."""
+    x, offset, mask, weight, cot, coff = _tangent_inputs(TANGENT_SHAPES[name], 8, "smooth",
+                                                         cuda, torch.bfloat16)
+    _tangents_vs_plain(x, offset, mask, weight, cot, coff, 8, TANGENT_TOL[torch.bfloat16],
+                       torch.bfloat16)
+    _tangents_vs_plain(x, offset, mask, weight, cot, coff, 8, (2.0 ** -7, 2.0 ** -7), None)
 
 
 def _second_order_case(op, device):

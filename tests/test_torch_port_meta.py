@@ -23,8 +23,9 @@ a seed. Both forwards run through each side's make_model_apply.
 - use_remat (torch.utils.checkpoint) on and off give the same second-order
   meta gradient (1e-6 of its largest value).
 - MetaModel, fed the batch as numpy, takes the same first step as JAX's
-  second-order step; bf16 EDVR raises, and second-order TOF / DUF build
-  (test_torch_port_meta_tof.py / _duf.py hold them against JAX).
+  second-order step; EDVR, TOF and DUF build to second order in fp32 and
+  bf16 (test_torch_port_meta_tof.py / _duf.py hold TOF / DUF against JAX,
+  test_torch_port_bf16_second_order.py a bf16 EDVR-L-shaped net).
 - One meta update through DeformConv2dFunction, its launchers replaced by
   plain stand-ins that count (test_torch_port_double_backward.py's), makes
   the launches chip_smoke.py phase 10 checks on the card.
@@ -54,6 +55,7 @@ from dynavsr_tpu_torch.ops import dcn
 from dynavsr_tpu_torch.train.checkpoint import save_network
 from dynavsr_tpu_torch.train.meta import MetaConfig, adapted_params, make_meta_train_step, meta_loss
 from dynavsr_tpu_torch.train.trainer import TrainerConfig, make_optimizer, make_schedule
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = dict(nf=8, nframes=3, groups=2, front_RBs=1, back_RBs=1)
 ALPHA, LR, STEPS = 1.0, 1e-4, 2
@@ -227,23 +229,23 @@ def test_meta_model_with_a_fed_batch_matches_jax(setup, jax_steps, tmp_path):
     _check_metrics(model.get_current_log(), jax_steps[False][0][0])
 
 
-def test_meta_model_refuses_what_has_no_second_order_kernels(tmp_path):
-    """A bf16 second order through the DCN or the dynamic filter raises
-    (no bf16 second order yet); TOF and DUF build to second order, TOF in
-    bf16 too (its warps stay fp32)."""
+def test_meta_model_builds_every_net_to_second_order_in_fp32_and_bf16(tmp_path):
+    """EDVR, TOF and DUF build to second order in fp32 and in bf16 (the DCN's
+    and the filter's second-order kernels take bf16; TOF's warps stay
+    fp32), and to first order when the config asks for it; the bf16 EDVR's
+    convs run in bf16."""
     save_network(str(tmp_path), 0, EDVR(**CFG))
-    with pytest.raises(NotImplementedError, match="bf16 second order"):
-        create_model(_meta_opt(tmp_path, dtype="bfloat16"), device="cpu")
+    model = create_model(_meta_opt(tmp_path, dtype="bfloat16"), device="cpu")
+    assert isinstance(model, MetaModel) and not model.meta_cfg.first_order
+    assert model.netG.conv_first.compute_dtype == torch.bfloat16
 
     def meta(net, first_order=False):
         return {"name": "meta", "model": "video_meta", "scale": 4, "is_train": True,
                 "network_G": net, "path": {}, "train": {"first_order": first_order}}
 
     tof, duf = {"which_model_G": "TOF", "nframes": 3}, {"which_model_G": "DUF_16L"}
-    for net in (tof, duf, {**tof, "dtype": "bfloat16"}):
+    for net in (tof, duf, {**tof, "dtype": "bfloat16"}, {**duf, "dtype": "bfloat16"}):
         assert not create_model(meta(net), device="cpu").meta_cfg.first_order
-    with pytest.raises(NotImplementedError, match="bf16 second order"):
-        create_model(meta({**duf, "dtype": "bfloat16"}), device="cpu")
     assert create_model(meta({**duf, "dtype": "bfloat16"}, True), device="cpu"
                         ).meta_cfg.first_order
 

@@ -56,6 +56,7 @@ from test_torch_port_meta_tof import (
     port_meta_grad,
     port_second_order_steps,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 ALPHA, LR, STEPS, FRAMES = 0.1, 1e-4, 2, 7
 DUF_LAUNCHES = {"duf_fwd": 5, "duf_bwd": 3}

@@ -71,6 +71,7 @@ from dynavsr_tpu_torch.train.meta import (
     meta_variables,
 )
 from dynavsr_tpu_torch.train.trainer import TrainerConfig, make_optimizer, make_schedule
+from torch_one_thread import one_thread  # noqa: F401
 
 ALPHA, LR, STEPS, FRAMES = 1.0, 1e-4, 2, 3
 STATS = ("running_mean", "running_var")

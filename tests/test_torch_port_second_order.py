@@ -16,8 +16,11 @@ filter (K6 / K7 composed), on CPU.
   1e-10 of the largest value (the same float64 products summed in another
   order), so each term of the decompositions in ops/grid_sample.py and
   ops/duf_filter.py is there; and a third backward raises.
-- The filter's second order with bf16 filters raises NotImplementedError
-  saying there is no bf16 second order yet.
+- The filter's second order with bf16 filters (DUF's bf16 mode; x fp32)
+  through `DufFilterFunction` with the same stand-ins equals plain autograd
+  of the plain filter on the same bf16 filters within 2^-7 of the largest
+  value (the gradient in the filters is rounded to bf16 on both sides, so
+  the same sum may land one bf16 step apart), and a third backward raises.
 """
 
 import numpy as np
@@ -97,13 +100,21 @@ def test_second_order_in_every_input_matches_plain_autograd(op, monkeypatch):
         grad_of_grad(function, create_graph=True)
 
 
-def test_duf_second_order_in_bf16_raises(monkeypatch):
+def test_duf_second_order_in_bf16_matches_plain_autograd(monkeypatch):
     _stand_ins("duf", monkeypatch)
     rng = np.random.default_rng(7)
     x = torch.tensor(rng.random((B, C, H, W)), dtype=torch.float32)
-    f = torch.tensor(rng.standard_normal((B, 25, R, H, W)), dtype=torch.bfloat16
-                     ).requires_grad_()
-    out = duf_filter.DufFilterFunction.apply(x, f)
-    (g,) = torch.autograd.grad((out ** 2).sum(), f, create_graph=True)
-    with pytest.raises(NotImplementedError, match="bf16 second order"):
-        torch.autograd.grad(g.float().sum(), f)
+    f = torch.tensor(rng.standard_normal((B, 25, R, H, W)), dtype=torch.bfloat16)
+
+    def grad_of_grad(fn, create_graph=False):
+        t = f.clone().requires_grad_()
+        (g,) = torch.autograd.grad((fn(x, t) ** 2).sum(), t, create_graph=True)
+        return torch.autograd.grad(g.float().sum(), t, create_graph=create_graph)[0]
+
+    got = grad_of_grad(duf_filter.DufFilterFunction.apply)
+    want = grad_of_grad(dynamic_upsampling_filter_ref)
+    assert got.dtype == torch.bfloat16 and float(want.float().abs().max()) > 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2.0 ** -7 * float(want.float().abs().max()))
+    with pytest.raises(RuntimeError, match="double backward.*K6, K7.*second-order"):
+        grad_of_grad(duf_filter.DufFilterFunction.apply, create_graph=True)

@@ -34,21 +34,11 @@ from dynavsr_tpu_torch.models.duf import DUF
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.models.padding import make_model_apply, make_mutable_model_apply
 from dynavsr_tpu_torch.models.tof import TOFlow
+from torch_one_thread import one_thread  # noqa: F401
 
 TINY = dict(nf=8, nframes=3, groups=2, front_RBs=1, back_RBs=1)
 PADDINGS = ["reflection", "replicate", "reflection_circle", "circle", "new_info"]
 CFG = AdaptConfig(n_steps=2, lr=1e-4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this module runs: its many small ops
-    would otherwise spin torch's 8-thread pool against the other test
-    workers on the same cores. Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frames(shape, seed):

@@ -50,6 +50,7 @@ from dynavsr_tpu_torch.train.checkpoint import (
     load_pretrained,
     save_network,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -390,11 +391,11 @@ def test_non_strict_load_keeps_the_model_where_shapes_differ(tmp_path):
 
 
 def test_what_the_port_still_refuses_says_why(tmp_path):
-    """Only orbax checkpoint directories, second-order meta-training where
-    the port has no double-backward kernels (bf16 DUF and EDVR: the
-    second-order kernels take fp32), a launcher other than none / pytorch
-    and an n_devices the launch did not start raise, each naming the
-    missing feature or the mismatch; adapt.clip_parallel is accepted (its
+    """Only orbax checkpoint directories, a launcher other than none /
+    pytorch and an n_devices the launch did not start raise, each naming
+    the missing feature or the mismatch; second-order meta-training of a
+    bf16 DUF or EDVR builds (the second-order kernels take bf16);
+    adapt.clip_parallel is accepted (its
     config reaches the n_devices check); eval.tile builds (no tiled sequence mode). An LMDB root now reads: a test set over one (raw
     frames with their .meta, the port's writer) gives JAX's items; the
     meta-training dataset modes build MetaVideoDataset."""
@@ -425,14 +426,12 @@ def test_what_the_port_still_refuses_says_why(tmp_path):
                           MetaVideoDataset)
     with pytest.raises(NotImplementedError, match="not recognized"):
         create_dataset({"mode": "Kinetics", "dataroot_LQ": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="second-order.*DUF.*bf16 second order"):
-        create_model({"model": "video_meta", "network_G": {"which_model_G": "DUF_16L",
-                                                            "dtype": "bfloat16"},
-                      "train": {"first_order": False}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16.*bf16 second order"):
-        create_model({"model": "video_meta", "network_G": {
-            "which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RBs": 1,
-            "back_RBs": 1, "dtype": "bfloat16"}}, device="cpu")
+    for net in ({"which_model_G": "DUF_16L", "dtype": "bfloat16"},
+                {"which_model_G": "EDVR", "nf": 8, "nframes": 3, "groups": 2, "front_RBs": 1,
+                 "back_RBs": 1, "dtype": "bfloat16"}):
+        model = create_model({"model": "video_meta", "network_G": net,
+                              "train": {"first_order": False}}, device="cpu")
+        assert not model.meta_cfg.first_order
     with pytest.raises(ValueError, match="--launcher 'slurm': expected one of"):
         train_cli.main(["-opt", "unused.yml", "--launcher", "slurm"])
     tiled = VideoBaseModel({"network_G": {"which_model_G": "EDVR", "nf": 8, "nframes": 3,

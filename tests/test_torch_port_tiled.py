@@ -25,20 +25,9 @@ from dynavsr_tpu_torch.models.duf import DUF
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.models.padding import make_model_apply
 from dynavsr_tpu_torch.models.video_base_model import VideoBaseModel
+from torch_one_thread import one_thread  # noqa: F401
 
 TINY = dict(nf=8, nframes=3, groups=2, front_RBs=1, back_RBs=1)
-
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this module runs: its many small ops
-    would otherwise spin torch's 8-thread pool against the other test
-    workers on the same cores. Restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frames(shape, seed, scale=1.0):

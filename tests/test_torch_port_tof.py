@@ -42,6 +42,7 @@ from dynavsr_tpu_torch.models import padding
 from dynavsr_tpu_torch.models.padding import make_model_apply, make_mutable_model_apply
 from dynavsr_tpu_torch.models.tof import SpyNet, TOFlow
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
+from torch_one_thread import one_thread  # noqa: F401
 
 T, H, W = 3, 16, 16
 

@@ -27,6 +27,7 @@ from dynavsr_tpu_torch.data.lmdb_native import LmdbReader, LmdbWriter
 from dynavsr_tpu_torch.models.edvr import EDVR
 from dynavsr_tpu_torch.train.checkpoint import resume_training, save_training_state
 from dynavsr_tpu_torch.train.trainer import TrainerConfig, make_optimizer, make_train_step
+from torch_one_thread import one_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
