@@ -267,6 +267,28 @@ Phases; any failure raises and exits non-zero:
               rounding puts there; that reading is reported); the bf16 K8-K10 calls of a 15c
               update timed (the kernels line's bf16 entries). Prints an
               `[edvr_l] {json}` line.
+ 16. quality  the blind-adaptation quality protocol
+              (dynavsr_tpu_torch/tools/blind_adaptation_check.py) through
+              its functions at the JAX tool's toy-shape leg: EDVR nf 32, 2 +
+              3 blocks, Gd 8, bf16 nets, seed 0, iso:1.8, 600 supervised +
+              600 MFDN iterations, 20 adaptation steps at lrs 1e-6 and 1e-5,
+              on raw-byte LMDBs it writes; run with a 150-iteration
+              second-order meta leg (checked: the protocol's PASS, mean gain
+              > 0.05 dB), then with none from the same root (the trained
+              nets reused, the tests run again), each gain printed beside
+              JAX's record (3.94 dB, matched bicubic 38.52 dB). At
+              trained weights: every K1-K3 call of one adapted clip of the
+              iso1.8 leg and every K1-K3, K8-K10 call of one meta update
+              held against the plain version (call_tol's bf16 bounds; a
+              call past its bound held if the kernel is no farther from a
+              float64 evaluation than the plain version plus the bound),
+              each kernel's spread of error / bound, the K1 offsets' mean
+              |value| in px, and the largest call of each timed and read
+              beside a wrong kernel (the plain version with offsets 2^-6
+              px off: how far past both checks it lands; the kernels
+              line's `*_trained_*` entries). Prints a
+              `[quality] {json}` line. A script that calls phase_device and
+              phase_build can run phase_quality alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2053,25 +2075,32 @@ def _cd(x):
 
 
 def _f32(*ts):
-    return [t.float() if torch.is_tensor(t) else t for t in ts]
+    """fp32 copies of the tensors; a float64 tensor stays float64 (the
+    float64 gauge's evaluation of a plain version)."""
+    return [t.float() if torch.is_tensor(t) and t.dtype != torch.float64 else t for t in ts]
+
+
+def _f64(*ts):
+    return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t for t in ts]
 
 
 def _dcn_vjp(x, offset, mask, weight, cot, gd, wrt):
     """The plain DCN's gradients in the inputs `wrt` (indices into (x,
     offset, mask, weight)), in fp32 (bf16 columns and weights for bf16
-    inputs)."""
+    inputs; float64 for float64 inputs)."""
     with torch.enable_grad():
-        leaves = [None if t is None else t.detach().float().requires_grad_()
+        leaves = [None if t is None else _f32(t.detach())[0].requires_grad_()
                   for t in (x, offset, mask, weight)]
         out = deform_conv2d_ref(*leaves, deformable_groups=gd, compute_dtype=_cd(x))
         grads = torch.autograd.grad(out, [leaves[i] for i in wrt if leaves[i] is not None],
-                                    cot.float())
+                                    _f32(cot)[0])
     return list(grads)
 
 
 def _tangent_plain(ref):
     """A K8-K10 plain formula on a wrapper's own arguments, in fp32 (with
-    bf16 tangent columns and weights for bf16 inputs); its non-None outputs."""
+    bf16 tangent columns and weights for bf16 inputs; float64 for float64
+    inputs); its non-None outputs."""
     def call(*args):
         out = ref(*_f32(*args), compute_dtype=_cd(args[0]))
         return [out] if torch.is_tensor(out) else [t for t in out if t is not None]
@@ -2087,8 +2116,8 @@ PLAIN_DCN_CALLS = {
     "dcn_bwd_data": lambda x, offset, mask, weight, cot, gd: _dcn_vjp(
         x, offset, mask, weight, cot, gd, (0, 1, 2)),
     "dcn_bwd_weight": lambda x, offset, mask, cot, gd: _dcn_vjp(
-        x, offset, mask, torch.zeros(cot.shape[1], x.shape[1], 3, 3, device=x.device), cot,
-        gd, (3,)),
+        x, offset, mask, torch.zeros(cot.shape[1], x.shape[1], 3, 3, device=x.device,
+                                     dtype=_f32(x)[0].dtype), cot, gd, (3,)),
     "dcn_fwd_tangent": _tangent_plain(dcn_fwd_tangent_ref),
     "dcn_bwd_weight_tangent": _tangent_plain(dcn_bwd_weight_tangent_ref),
     "dcn_bwd_data_tangent": _tangent_plain(dcn_bwd_data_tangent_ref),
@@ -2117,13 +2146,19 @@ def call_tol(name: str, args) -> float:
     return 2.0 ** -7 if name == "duf_bwd" else 1e-4
 
 
-def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False) -> tuple:
+def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False,
+                  f64: bool = False) -> tuple:
     """Run `run()` with every call of `module`'s wrappers named in `plain`
     held against plain[name] on the same inputs as it happens (phase 3's
     tolerances, call_tol: 1e-4 of the plain result's largest value in
-    fp32); returns one row a call, and the arguments of the largest call of
-    each wrapper in `keep` (with `by_shape`, of its first call at each input
-    shape, keyed (name, shape))."""
+    fp32); returns one row a call (a K1 row also has its offsets' mean
+    |value| in px), and the arguments of the largest call of each wrapper
+    in `keep` (with `by_shape`, of its first call at each input shape,
+    keyed (name, shape)). With `f64` every call is also gauged: plain[name]
+    on its inputs in float64, and the kernel's and the plain version's
+    largest distance from it, relative to the same scale (`kernel_vs_f64`,
+    `plain_vs_f64`); a call past its bound against the plain version is
+    then held by f64_held."""
     rows, kept = [], {}
     orig = {n: getattr(module, n) for n in plain}
 
@@ -2137,9 +2172,21 @@ def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False) -> 
             err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
             scale = max(float(w.abs().max()) for w in want)
             tol = call_tol(name, args) * scale
-            rows.append(dict(name="dcn_fwd" if name == "_fwd" else name,
-                             dims=list(args[0].shape), dtype=str(args[0].dtype)[6:],
-                             max_abs_err=err, tol=tol, ok=err <= tol))
+            row = dict(name="dcn_fwd" if name == "_fwd" else name, dims=list(args[0].shape),
+                       dtype=str(args[0].dtype)[6:], max_abs_err=err, tol=tol, scale=scale,
+                       ok=err <= tol)
+            if name == "_fwd":
+                row["offset_absmean_px"] = float(args[1].detach().float().abs().mean())
+            if f64:
+                with torch.no_grad():
+                    exact = plain[name](*_f64(*args))
+                unit = max(scale, 1e-30)
+                row.update(kernel_vs_f64=max(float((g.double() - e).abs().max())
+                                             for g, e in zip(got, exact)) / unit,
+                           plain_vs_f64=max(float((w.double() - e).abs().max())
+                                            for w, e in zip(want, exact)) / unit)
+                row["ok"] = f64_held(row)
+            rows.append(row)
             key = (name, tuple(args[0].shape)) if by_shape else name
             if name in keep and (key not in kept or (
                     not by_shape and args[0].numel() > kept[key][0].numel())):
@@ -2155,6 +2202,20 @@ def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False) -> 
         for n, f in orig.items():
             setattr(module, n, f)
     return rows, kept
+
+
+def f64_held(row: dict) -> bool:
+    """A gauged call (checked_calls with f64) holds if it is within its
+    bound of the plain version, or, past it, if the kernel is no farther
+    from the float64 evaluation than the plain version is plus that bound
+    (both relative to the plain result's largest value). Two bf16 outputs
+    rounded from nearly equal fp32 sums may sit one bf16 step apart, up to
+    2^-7 of the largest value, while both keep the plain version's distance
+    from the exact result; a wrong kernel moves away from it."""
+    if row["max_abs_err"] <= row["tol"]:
+        return True
+    unit = max(row["scale"], 1e-30)
+    return bool(row["kernel_vs_f64"] <= row["plain_vs_f64"] + row["tol"] / unit)
 
 
 def meta_gradient(model, batch, alpha: float, first_order: bool) -> torch.Tensor:
@@ -3932,6 +3993,199 @@ def phase_edvr_l(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray,
     return out, rows, launches
 
 
+# ---------------------------------------------------------------- phase 16
+# The JAX tool's toy-shape leg (tools/tpu_queue_r5d.sh:38-44): EDVR nf 32, 2 +
+# 3 blocks, Gd 8, bf16 nets, seed 0, iso:1.8, 600 + 600 iterations, 20
+# adaptation steps at lrs 1e-6 and 1e-5, MFDN; run with meta 150, then
+# meta 0 from the same root (the trained VSR net and MFDN reused).
+QUALITY_ARGS = ["--kernels", "iso:1.8", "--seed", "0", "--iters", "600", "--mfdn-iters", "600",
+                "--adapt-steps", "20", "--adapt-lrs", "1e-6", "1e-5", "--estimator", "mfdn",
+                "--nf", "32", "--front-rbs", "2", "--back-rbs", "3", "--groups", "8"]
+QUALITY_META_ITERS = 150
+# The JAX package's record of the same leg on a TPU (PSNR, not time):
+# results_r05/blind_est_mfdn.log.
+JAX_QUALITY = {"mean_gain_db": 3.94, "psnr_bicubic_matched": 38.52,
+               "sfdn_mean_gain_db": 3.84, "source": "results_r05/blind_est_mfdn.log"}
+DCN_WRAPPERS = ("_fwd", "dcn_bwd_data", "dcn_bwd_weight")
+
+
+# The wrong kernel that phase 16 measures its bounds against: the plain
+# version with every offset 2^-6 px off.
+OFFSET_BUG_PX = 2.0 ** -6
+
+
+def ratio_spread(ratios: list) -> dict:
+    """The distribution of a kernel's calls' error / bound: count, median,
+    90th percentile, largest, and how many lie above 0.9 and above 1."""
+    r = np.asarray(ratios, dtype=np.float64)
+    return dict(n=int(r.size), median=float(np.median(r)), p90=float(np.percentile(r, 90)),
+                max=float(r.max()), above_0_9=int((r > 0.9).sum()), above_1=int((r > 1).sum()))
+
+
+def checked_trained(tag: str, run, names, smi: str) -> tuple:
+    """run() with every call of the DCN wrappers `names` held against its
+    plain version and gauged against float64 (checked_calls with f64:
+    call_tol's bounds, a call past its bound held by f64_held); each
+    kernel's spread of error / bound and its largest float64 distances;
+    then the first call of each wrapper at its largest shape timed beside
+    its plain version and its bound, and read beside a wrong kernel (the
+    plain version with its offsets OFFSET_BUG_PX off): its error / bound
+    and its distance from float64, where both checks would fail it if it
+    stood far beyond 1 and beyond the plain version's. Returns the reading
+    and the timing rows."""
+    calls, kept = checked_calls(run, dcn, {n: PLAIN_DCN_CALLS[n] for n in names}, keep=names,
+                                by_shape=True, f64=True)
+    offs = [r["offset_absmean_px"] for r in calls if r["name"] == "dcn_fwd"]
+    spread = {}
+    for k in dict.fromkeys(r["name"] for r in calls):
+        mine = [r for r in calls if r["name"] == k]
+        spread[k] = dict(ratio=ratio_spread([r["max_abs_err"] / max(r["tol"], 1e-30)
+                                             for r in mine]),
+                         kernel_vs_f64_max=max(r["kernel_vs_f64"] for r in mine),
+                         plain_vs_f64_max=max(r["plain_vs_f64"] for r in mine),
+                         held_by_f64=sum(r["max_abs_err"] > r["tol"] and r["ok"] for r in mine))
+        q, v = spread[k]["ratio"], spread[k]
+        print(f"[quality] {tag}: {k} {q['n']} calls vs plain at trained weights, error / bound "
+              f"median {q['median']:.3f} p90 {q['p90']:.3f} max {q['max']:.3f} (> 0.9: "
+              f"{q['above_0_9']}, > 1: {q['above_1']}, held by the float64 gauge: "
+              f"{v['held_by_f64']}); largest distance from float64: kernel "
+              f"{v['kernel_vs_f64_max']:.3e}, plain {v['plain_vs_f64_max']:.3e} (of the "
+              f"largest value)")
+    print(f"[quality] {tag}: K1 offsets mean |value| {np.mean(offs):.4f} px (calls "
+          f"{min(offs):.4f}-{max(offs):.4f})")
+    bad = [r for r in calls if not r["ok"]]
+    check(not bad, f"{tag}: {len(bad)} calls off their plain version and float64: {bad[:3]}")
+    check(set(spread) == {"dcn_fwd" if n == "_fwd" else n for n in names},
+          f"{tag}: calls {list(spread)}")
+    rows = []
+    for name in names:
+        shape = max((k[1] for k in kept if k[0] == name), key=lambda s: (s[2] * s[3], s[0]))
+        args = kept[(name, shape)]
+        gd, dtype, kname = args[-1], args[0].dtype, "dcn_fwd" if name == "_fwd" else name
+        fn, plain = getattr(dcn, name), PLAIN_DCN_CALLS[name]
+        out = fn(*args)
+        got = [out[0]] if name == "_fwd" else (
+            [out] if torch.is_tensor(out) else [t for t in out if t is not None])
+        with torch.no_grad():
+            want, exact = plain(*args), plain(*_f64(*args))
+            wrong = plain(args[0], args[1] + OFFSET_BUG_PX, *args[2:])
+        scale, tol = max(float(w.abs().max()) for w in want), call_tol(name, args)
+        dist = lambda a, b: max(float((x.double() - y.double()).abs().max())  # noqa: E731
+                                for x, y in zip(a, b)) / scale
+        err, plain_f64, wrong_f64 = dist(got, want), dist(want, exact), dist(wrong, exact)
+        wrong_ratio = dist(wrong, want) / tol
+        bound = (tangent_bound if kname in TANGENT_KERNELS else dcn_bound)(kname, shape, gd,
+                                                                             dtype)
+        ms = cuda_ms(lambda: fn(*args), reps=10)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+        row = dict(name=kname, run=tag, label=f"{shape[0]}x{shape[2]}x{shape[3]}",
+                   dims=list(shape), gd=gd, dtype=str(dtype)[6:], max_abs_err=err * scale,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                   bytes=bound[2], flops=bound[3], roofline=bound[0] / ms, library_ms=None,
+                   offset_absmean_px=float(np.mean(offs)), error_over_bound=err / tol,
+                   plain_vs_f64=plain_f64, wrong_offsets_over_bound=wrong_ratio,
+                   wrong_offsets_vs_f64=wrong_f64)
+        rows.append(row)
+        print(f"[timing] {kname:22s} {tag} {row['label']} Gd={gd} {row['dtype']} max|err| "
+              f"{err * scale:.3e} ({err / tol:.3f} of its bound; offsets {OFFSET_BUG_PX} px "
+              f"off: {wrong_ratio:.1f} of it, {wrong_f64:.3e} from float64 against plain's "
+              f"{plain_f64:.3e})  {ms:.4f} ms  plain {plain_ms:.3f} ms  bound {bound[0]:.4f} ms "
+              f"({bound[1]})  roofline {row['roofline']:.1%}  [{smi}]")
+    return dict(calls=spread, offset_absmean_px=float(np.mean(offs)),
+                offset_absmean_px_range=[min(offs), max(offs)]), rows
+
+
+def phase_quality(smi: str, root: str, device=None) -> tuple:
+    """16: the blind-adaptation quality protocol
+    (dynavsr_tpu_torch/tools/blind_adaptation_check.py) at the JAX tool's
+    toy-shape leg, through the tool's functions, twice from one root: meta
+    150 (the protocol's PASS checked), then meta 0 (only the tests run
+    again). Then at trained weights: every K1-K3 call of one adapted clip
+    of the iso1.8 leg (the meta-trained EDVR, its best lr) and every K1-K3,
+    K8-K10 call of one meta update, held against the plain version, gauged
+    against float64 and timed (checked_trained). Needs only the card and
+    a scratch directory: a script that calls phase_device and phase_build
+    can run it alone. Returns (the reading, the timing rows, the meta run's
+    launches)."""
+    from dynavsr_tpu_torch.data.lmdb_dataset import LmdbClipIndex
+    from dynavsr_tpu_torch.models.video_base_model import MetaModel
+    from dynavsr_tpu_torch.tools import blind_adaptation_check as protocol
+    from dynavsr_tpu_torch.train.checkpoint import load_pretrained
+
+    qroot, device = osp.join(root, "quality"), resolve_device(device)
+    out, runs = {"jax": JAX_QUALITY}, {}
+    for meta_iters in (QUALITY_META_ITERS, 0):
+        args = protocol.build_parser().parse_args(
+            QUALITY_ARGS + ["--meta-iters", str(meta_iters), "--root", qroot])
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with TrainingProbe(keep={1}, cls=MetaModel) as probe:
+            record, details = protocol.run(args, device)
+        secs = time.perf_counter() - t0
+        runs[meta_iters] = (record, details, probe.batches.get(1), all_counts())
+        leg = record["per_kernel"]["iso1.8"]
+        out[f"meta{meta_iters}"] = dict(record=record, seconds=secs, legs=details["seconds"],
+                                        launches=runs[meta_iters][3])
+        print(f"[quality] 16 meta {meta_iters}: mean gain {record['mean_gain_db']:+.4f} dB "
+              f"(blind {leg['psnr_no_adapt']:.4f} -> adapted {leg['psnr_adapted']:.4f} at lr "
+              f"{leg['best_adapt_lr']:g}), matched bicubic {record['psnr_bicubic_matched']:.4f} "
+              f"dB; MFDN probe rmse {leg['mfdn_rmse_vs_true_slr']:.5f} vs bicubic "
+              f"{leg['bicubic_rmse_vs_true_slr']:.5f}; JAX (TPU record, "
+              f"{JAX_QUALITY['source']}): gain {JAX_QUALITY['mean_gain_db']} dB, matched "
+              f"{JAX_QUALITY['psnr_bicubic_matched']} dB; {secs:.1f} s, legs "
+              f"{ {k: round(v, 1) for k, v in details['seconds'].items()} }  [{smi}]")
+        check(all(math.isfinite(v) for v in (record["mean_gain_db"], leg["psnr_adapted"],
+                                             record["psnr_bicubic_matched"])),
+              f"16 meta {meta_iters}: {record}")
+    record, details, batch, launches = runs[QUALITY_META_ITERS]
+    check(details["mean_gain_db"] > 0.05,
+          f"16: the meta run's mean adaptation gain {details['mean_gain_db']:.4f} dB is not "
+          f"above 0.05 dB (the protocol's PASS)")
+    out["meta_effect_db"] = record["mean_gain_db"] - runs[0][0]["mean_gain_db"]
+    check(launches["dcn_fwd"] > 0 and all(launches[k] > 0 for k in TANGENT_KERNELS),
+          f"16: the meta run launched {launches}")
+
+    # Every K1-K3 call of one adapted clip (the iso1.8 leg's first val clip,
+    # the meta-trained EDVR at the best lr), at trained weights.
+    opts, leg = details["opts"], record["per_kernel"]["iso1.8"]
+    best = opts[f"adapt_iso1.8_{leg['best_adapt_lr']:g}"]
+    vsr = define_G(best, device)
+    load_pretrained(vsr, details["adapt_init_ckpt"])
+    est = build_estimator(best["network_E"], SCALE, details["n_frames"], device)
+    load_pretrained(est, details["mfdn_ckpt"])
+    lq_index = LmdbClipIndex(f"{details['data']}/val/LQ_iso1.8.lmdb")
+    clip = lq_index.names[0]
+    lq = np.stack([lq_index.read_frame(k) for k in lq_index.clips[clip]])
+    cfg = AdaptConfig(n_steps=best["adapt"]["n_steps"], lr=best["adapt"]["lr"],
+                      optimizer="adam", infer_chunk=INFER_CHUNK)
+    out["adapted_clip"], rows = checked_trained(
+        "16 adapted clip", lambda: run_clip(vsr, est, lq, None, cfg, seq=False,
+                                            n_frames=details["n_frames"], padding="reflection",
+                                            n_adapt=best["adapt"]["n_windows"], device=device),
+        DCN_WRAPPERS, smi)
+    del vsr, est
+
+    # Every K1-K3, K8-K10 call of one meta update at the meta-trained weights.
+    meta_opt = opts["train_meta"]
+    model = create_model({**meta_opt, "path": {
+        **meta_opt["path"], "pretrain_model_G": details["adapt_init_ckpt"]}}, device)
+    model.feed_data({k: torch.as_tensor(v, device=device) for k, v in batch.items()})
+    model.optimize_parameters()  # warm-up (builds the step)
+    out["meta_update"], meta_rows = checked_trained(
+        "16 meta update", model.optimize_parameters, DCN_WRAPPERS + TANGENT_KERNELS, smi)
+    del model
+    torch.cuda.empty_cache()
+    n_calls = {k: v["ratio"]["n"] for k, v in out["meta_update"]["calls"].items()}
+    check(n_calls["dcn_fwd"] == META_LAUNCHES["dcn_fwd"]
+          and all(n_calls[k] == META_LAUNCHES[k] for k in TANGENT_KERNELS),
+          f"16: a meta update's calls {out['meta_update']['calls']}")
+    print(f"[quality] 16 gain with meta {QUALITY_META_ITERS} {record['mean_gain_db']:+.4f} dB, "
+          f"without {runs[0][0]['mean_gain_db']:+.4f} dB (meta leg {out['meta_effect_db']:+.4f}"
+          f" dB); JAX's record {JAX_QUALITY['mean_gain_db']} dB with meta "
+          f"{QUALITY_META_ITERS}  [{smi}]")
+    return out, rows + meta_rows, launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -4002,7 +4256,11 @@ def main() -> None:
             smi, gen, lq, gt, edvr_ctx, main_results, (reds_gt, reds_lq), meta, meta2, root)
         edvr_l["seconds"] = time.perf_counter() - t_large
         print(f"[edvr_l] phase 15 took {edvr_l['seconds']:.1f} s")
-    rows += train_rows + meta_rows + meta2_rows + edvr_l_rows
+        t_quality = time.perf_counter()
+        quality, quality_rows, quality_launches = phase_quality(smi, root)
+        quality["seconds"] = time.perf_counter() - t_quality
+        print(f"[quality] phase 16 took {quality['seconds']:.1f} s")
+    rows += train_rows + meta_rows + meta2_rows + edvr_l_rows + quality_rows
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
     launches = {**{k: edvr_launches[k] for k in DCN_KERNELS},
@@ -4049,12 +4307,25 @@ def main() -> None:
                         "bound_by": row["bound_by"], "library_ms": None, "dtype": "bfloat16",
                         "kernel_ms": row["kernel_ms"], "host_us": row["host_us"],
                         "kernel_roofline": row["kernel_roofline"]})
+    # Phase 16, at the quality protocol's trained weights (bf16): the largest
+    # K1-K3 call of one adapted clip and K1-K3, K8-K10 call of one meta
+    # update; launches of the protocol's meta run.
+    for row in quality_rows:
+        source, _, replaces = KERNELS[row["name"]]
+        where = "adapt" if row["run"] == "16 adapted clip" else "meta"
+        kernels.append({"name": f"{row['name']}_trained_{where}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": quality_launches[row["name"]],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": None, "dtype": row["dtype"],
+                        "dims": row["dims"], "offset_absmean_px": row["offset_absmean_px"]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
                        "duf": duf_results, "surface": surface, "train": training,
                        "meta": meta, "meta2": meta2, "tiles": tiles, "stream": stream,
-                       "multi": multi, "edvr_l": edvr_l,
+                       "multi": multi, "edvr_l": edvr_l, "quality": quality,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print("[train] " + json.dumps(training))
@@ -4064,6 +4335,7 @@ def main() -> None:
     print("[stream] " + json.dumps(stream, default=str))
     print("[multi] " + json.dumps(multi, default=str))
     print("[edvr_l] " + json.dumps(edvr_l, default=str))
+    print("[quality] " + json.dumps(quality, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

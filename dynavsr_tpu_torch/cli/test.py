@@ -22,7 +22,7 @@ from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.eval.harness import evaluate_dataset
 from dynavsr_tpu_torch.models.video_base_model import create_model
 
-__all__ = ["main"]
+__all__ = ["main", "run"]
 
 logger = logging.getLogger("dynavsr_tpu_torch")
 
@@ -35,10 +35,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None, help="default: cuda")
     args = parser.parse_args(argv)
 
-    from dynavsr_tpu_torch.config.options import dict2str, parse
+    from dynavsr_tpu_torch.config.options import parse
 
     device = resolve_device(args.device)
-    opt = parse(args.opt)
+    return run(parse(args.opt), device, args.no_save_images)
+
+
+def run(opt, device, no_save_images: bool) -> dict:
+    """`main` on a derived config (config/options.parse, or derive on a
+    dict) and a resolved device: {dataset block name: {clip: scores,
+    '_avg': ...}}."""
+    from dynavsr_tpu_torch.config.options import dict2str
+
     logging.basicConfig(level=logging.INFO)
     logger.info(dict2str(opt))
     model = create_model(opt, device)
@@ -59,7 +67,7 @@ def main(argv=None) -> dict:
             chunk=model.infer_chunk,
             ycbcr=bool(ev.get("ycbcr", False)),
             crop_border=int(ev.get("crop_border") or 0),
-            save_root=None if args.no_save_images else osp.join(
+            save_root=None if no_save_images else osp.join(
                 opt["path"]["results_root"], label),
             logger=logger, seq_fn=seq_fn)
     return all_results

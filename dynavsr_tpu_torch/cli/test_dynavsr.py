@@ -57,7 +57,7 @@ from dynavsr_tpu_torch.models.video_base_model import check_n_devices
 from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 
-__all__ = ["run_clip", "run_clips", "build_estimator", "adapt_config", "main"]
+__all__ = ["run_clip", "run_clips", "build_estimator", "adapt_config", "main", "run"]
 
 logger = logging.getLogger("dynavsr_tpu_torch")
 
@@ -231,13 +231,16 @@ def main(argv=None):
     opt = parse(args.opt)
     device = mesh.init_dist(args.launcher, args.device)
     try:
-        return _main(opt, device, args.no_save_images)
+        return run(opt, device, args.no_save_images)
     finally:
         if args.launcher != "none":
             torch.distributed.destroy_process_group()
 
 
-def _main(opt, device, no_save_images: bool) -> dict:
+def run(opt, device, no_save_images: bool) -> dict:
+    """`main` on a derived config (config/options.parse, or derive on a
+    dict) and a resolved device: {clip: scores, '_avg': ...} (on rank 0;
+    other ranks return {})."""
     from dynavsr_tpu_torch.config.options import dict2str
 
     logging.basicConfig(level=logging.INFO)

@@ -7,11 +7,19 @@ cast, with the input, to bf16 for the conv, whose output stays bf16 (flax
 with the reference's `{name}.{i}.conv1.weight` keys; the JAX package stacks
 the same tensors on a leading axis (nn.scan). `BatchNorm2d` and
 `BatchNorm3d` are flax's BatchNorm under torch's state_dict keys.
+
+Initial weights follow the JAX package's initialisers, not torch's
+defaults: every conv bias starts at zero (flax's default); `conv` keeps
+torch's default weights, which are the JAX package's `variance_scaling(1/3,
+"fan_in", "uniform")`; residual blocks draw kaiming-normal weights scaled by
+0.1 (`kaiming_scaled(0.1)`); `variance_scaling_` gives flax's truncated
+normals (`lecun_normal` is scale 1).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -20,7 +28,7 @@ import torch.nn.functional as F
 
 from dynavsr_tpu_torch.parallel import mesh
 
-__all__ = ["Conv2d", "Conv3d", "conv", "BatchNorm2d", "BatchNorm3d", "global_batch_stats",
+__all__ = ["Conv2d", "Conv3d", "conv", "variance_scaling_", "BatchNorm2d", "BatchNorm3d", "global_batch_stats",
            "ResidualBlockNoBN", "ResTrunk", "lrelu", "interpolate_bilinear", "max_pool_3x3_s2",
            "avg_pool_3x3_s2", "avg_pool2"]
 
@@ -48,10 +56,22 @@ class Conv3d(_ComputeDtype, nn.Conv3d):
     """nn.Conv3d with an optional compute dtype."""
 
 
+def variance_scaling_(w: torch.Tensor, scale: float) -> torch.Tensor:
+    """flax's `variance_scaling(scale, "fan_in", "truncated_normal")` in
+    place: a normal cut at two deviations whose variance is scale / fan_in
+    (fan_in: the input channels times the kernel's taps)."""
+    std = math.sqrt(scale / w[0].numel()) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std)
+
+
 def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1,
          dtype: Optional[torch.dtype] = None) -> Conv2d:
-    """Conv with torch-style symmetric padding (kernel - 1) // 2."""
-    return Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, compute_dtype=dtype)
+    """Conv with torch-style symmetric padding (kernel - 1) // 2 and a zero
+    bias."""
+    c = Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, compute_dtype=dtype)
+    nn.init.zeros_(c.bias)
+    return c
 
 
 class _FlaxBatchNorm:
@@ -154,12 +174,15 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class ResidualBlockNoBN(nn.Module):
-    """conv3x3 -> ReLU -> conv3x3 + identity."""
+    """conv3x3 -> ReLU -> conv3x3 + identity; convs kaiming-normal * 0.1."""
 
     def __init__(self, nf: int = 64, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = conv(nf, nf, dtype=dtype)
         self.conv2 = conv(nf, nf, dtype=dtype)
+        with torch.no_grad():
+            for c in (self.conv1, self.conv2):
+                variance_scaling_(c.weight, 2.0).mul_(0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv2(F.relu(self.conv1(x)))

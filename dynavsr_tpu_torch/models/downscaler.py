@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dynavsr_tpu_torch.data.resize import imresize
-from dynavsr_tpu_torch.models.arch_util import Conv2d
+from dynavsr_tpu_torch.models.arch_util import Conv2d, variance_scaling_
 
 __all__ = ["MFDN", "SFDN"]
 
@@ -39,6 +39,10 @@ class _Downscaler(nn.Module):
         self.down = Conv2d(nf, nf, 3, scale, 1, compute_dtype=dtype)
         self.refine0 = Conv2d(nf, nf, 3, 1, 1, compute_dtype=dtype)
         self.out = Conv2d(nf, ch, 3, 1, 1, compute_dtype=dtype)
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                variance_scaling_(m.weight, 1.0)
+                nn.init.zeros_(m.bias)
 
     def _layers(self, y: torch.Tensor) -> torch.Tensor:
         """(B, ch, H, W) -> (B, ch, H/s, W/s), without the bicubic residual."""

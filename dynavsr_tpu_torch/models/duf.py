@@ -33,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dynavsr_tpu_torch.models.arch_util import BatchNorm3d, Conv3d
+from dynavsr_tpu_torch.models.arch_util import BatchNorm3d, Conv3d, variance_scaling_
 from dynavsr_tpu_torch.ops.duf_filter import dynamic_upsampling_filter
 from dynavsr_tpu_torch.ops.duf_filter_ref import TAPS
 from dynavsr_tpu_torch.ops.pixelshuffle import pixel_shuffle
@@ -50,8 +50,11 @@ def _conv3d(cin: int, cout: int, kernel, t_valid: bool = False,
     `t_valid` (the JAX `_conv3d` rule)."""
     kt, kh, kw = kernel
     pad_t = 0 if t_valid else (kt - 1) // 2
-    return Conv3d(cin, cout, kernel, 1, (pad_t, (kh - 1) // 2, (kw - 1) // 2),
-                  compute_dtype=dtype)
+    c = Conv3d(cin, cout, kernel, 1, (pad_t, (kh - 1) // 2, (kw - 1) // 2),
+               compute_dtype=dtype)
+    variance_scaling_(c.weight, 1.0)  # flax's lecun_normal, zero bias
+    nn.init.zeros_(c.bias)
+    return c
 
 
 def _bn_relu(bn: BatchNorm3d, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

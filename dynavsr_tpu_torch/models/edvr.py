@@ -33,6 +33,7 @@ from dynavsr_tpu_torch.models.arch_util import (
     interpolate_bilinear,
     lrelu,
     max_pool_3x3_s2,
+    variance_scaling_,
 )
 from dynavsr_tpu_torch.ops.dcn import deform_conv2d
 from dynavsr_tpu_torch.ops.pixelshuffle import pixel_shuffle
@@ -57,7 +58,7 @@ class DCNSep(nn.Module):
         nn.init.zeros_(self.conv_offset_mask.bias)
         self.weight = nn.Parameter(torch.empty(nf, nf, 3, 3))
         self.bias = nn.Parameter(torch.zeros(nf))
-        nn.init.kaiming_normal_(self.weight, a=0, mode="fan_in")
+        variance_scaling_(self.weight, 2.0)
 
     def forward(self, x: torch.Tensor, offset_fea: torch.Tensor) -> torch.Tensor:
         om = self.conv_offset_mask(offset_fea)

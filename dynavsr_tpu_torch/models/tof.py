@@ -28,7 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dynavsr_tpu_torch.data.resize import imresize
-from dynavsr_tpu_torch.models.arch_util import BatchNorm2d, avg_pool2, conv, interpolate_bilinear
+from dynavsr_tpu_torch.models.arch_util import (BatchNorm2d, Conv2d, avg_pool2, conv,
+                                                 interpolate_bilinear, variance_scaling_)
 from dynavsr_tpu_torch.ops.grid_sample import warp_nchw
 
 __all__ = ["SpyNetBlock", "SpyNet", "TOFlow"]
@@ -106,6 +107,9 @@ class TOFlow(nn.Module):
         self.conv_64_64_9x9 = conv(64, 64, 9, dtype=dtype)
         self.conv_64_64_1x1 = conv(64, 64, 1, dtype=dtype)
         self.conv_64_3_1x1 = conv(64, 3, 1, dtype=dtype)
+        for m in self.modules():  # flax's lecun_normal (conv gives the zero bias)
+            if isinstance(m, Conv2d):
+                variance_scaling_(m.weight, 1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pre_upscale:

@@ -9,7 +9,8 @@ state is `<state_dir>/<iter>.state`: the epoch, the iteration and the
 optimizer's state_dict (the lr schedule is a function of the iteration, so
 nothing else is needed to resume). The JAX package's orbax checkpoint
 directories are not read: that needs orbax and tensorstore, which the port
-does not import.
+does not import; tools/orbax_to_pth.py (outside the package) converts them
+to `.pth` files.
 """
 
 from __future__ import annotations
@@ -62,7 +63,8 @@ def load_pretrained(model: torch.nn.Module, path: Optional[str], strict: bool = 
     """The entry points' loader for `path.pretrain_model_*`: nothing to do
     without a path (the model keeps its initial weights, with a warning); a
     `.pth` / `.pt` file loads through load_network; an orbax checkpoint
-    directory (the JAX package's `.ckpt` / `<iter>_G`) raises."""
+    directory (the JAX package's `.ckpt` / `<iter>_G`) raises, naming the
+    converter tools/orbax_to_pth.py."""
     if not path:
         logger.warning("no checkpoint for %s: using its initial weights", type(model).__name__)
         return
@@ -72,9 +74,10 @@ def load_pretrained(model: torch.nn.Module, path: Optional[str], strict: bool = 
     if osp.isdir(path) or path.endswith(".ckpt"):
         raise NotImplementedError(
             f"{path}: a JAX orbax checkpoint directory. Reading it needs orbax and "
-            "tensorstore, which the port does not import; restore it with the JAX package "
-            "and convert the params with convert/from_jax.py:jax_params_to_state_dict, then "
-            "torch.save the state_dict as a .pth (reading orbax checkpoints is not ported)")
+            "tensorstore, which the port does not import; convert it to a .pth with "
+            "tools/orbax_to_pth.py (python tools/orbax_to_pth.py CKPT OUT.pth [-opt CONFIG]: "
+            "it restores with the JAX package and maps with convert/from_jax.py) and load "
+            "that (the port reads no orbax checkpoints itself)")
     raise ValueError(f"{path}: not a .pth / .pt checkpoint")
 
 

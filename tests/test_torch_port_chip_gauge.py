@@ -7,6 +7,11 @@ the plain op's float64 term, and the kernels' relative distance from the
 plain fp32 term. The rule fails a try only on the kernels' own distance
 from float64, so an ill-conditioned draw, where both fp32 terms sit far
 from float64, can no longer fail the run, while a wrong kernel still does.
+
+Phase 16's per-call rule (chip_smoke.f64_held) on synthetic rows: a bf16
+call past its bound against the plain version holds only while the kernel
+is no farther from a float64 evaluation than the plain version plus that
+bound.
 """
 
 import math
@@ -49,3 +54,30 @@ def test_gauge_verdict(name):
     got_held, bad = chip_smoke.gauge_verdict(readings)
     assert got_held is (None if held is None else readings[held])
     assert len(bad) == n_bad, bad
+
+
+def _row(err, kernel, plain, tol=2.0 ** -8, scale=2.0):
+    """A checked_calls row with the float64 gauge: error against the plain
+    version and bound in absolute terms, distances from float64 relative
+    to the plain result's largest value (`scale`)."""
+    return dict(max_abs_err=err * scale, tol=tol * scale, scale=scale,
+                kernel_vs_f64=kernel, plain_vs_f64=plain)
+
+
+# (row, held) for phase 16's per-call rule, chip_smoke.f64_held.
+F64_CASES = {
+    "within-the-bound": (_row(0.9 * 2.0 ** -8, 0.5, 1e-3), True),
+    # One bf16 step apart at the largest value, both as near float64.
+    "one-bf16-step-apart": (_row(2.0 ** -7, 3.1e-3, 3.0e-3), True),
+    "past-the-bound-as-far-as-plain-plus-the-bound": (_row(2.0 ** -7, 3.0e-3 + 2.0 ** -8,
+                                                           3.0e-3), True),
+    # A wrong kernel: off the plain version and away from float64.
+    "wrong-kernel": (_row(0.05, 0.05, 3.0e-3), False),
+    "nan-kernel": (_row(math.nan, math.nan, 3.0e-3), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F64_CASES))
+def test_f64_held(name):
+    row, held = F64_CASES[name]
+    assert chip_smoke.f64_held(row) is held
