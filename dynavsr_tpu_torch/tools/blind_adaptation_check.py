@@ -63,7 +63,8 @@ from dynavsr_tpu_torch.data.resize import imresize
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 
-__all__ = ["parse_kernel", "make_gt", "make_blur_leg", "build_parser", "run", "main"]
+__all__ = ["parse_kernel", "make_gt", "make_blur_leg", "build_parser", "vsr_network", "run",
+           "main"]
 
 
 def parse_kernel(spec: str) -> Tuple[str, np.ndarray, float]:
@@ -192,6 +193,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def vsr_network(args: argparse.Namespace) -> Tuple[dict, str]:
+    """The VSR net's network_G for --arch (and EDVR's shape flags), and its
+    checkpoint name: the JAX tool's, with non-default shape knobs baked in
+    so a reused --root never serves an nf=32 init to an nf=64 eval."""
+    if args.arch == "tof":
+        # raw-LR contract via the module-internal bicubic front-end
+        net_g = {"which_model_G": "TOF", "pre_upscale": True, "nframes": 5,
+                 "dtype": "bfloat16"}
+    elif args.arch == "duf":
+        # DUF's valid temporal 3D convs need the full 7-frame window
+        net_g = {"which_model_G": "DUF_16L", "nframes": 7, "dtype": "bfloat16"}
+    else:
+        net_g = {"which_model_G": "EDVR", "nf": args.nf, "nframes": 5,
+                 "groups": args.groups, "front_RBs": args.front_rbs,
+                 "back_RBs": args.back_rbs, "dtype": "bfloat16"}
+    vsr_name = f"vsr_{args.arch}" + (
+        f"_gd{args.groups}" if args.arch == "edvr" and args.groups != 8 else "")
+    if args.arch == "edvr":
+        if args.nf != 32:
+            vsr_name += f"_nf{args.nf}"
+        if (args.front_rbs, args.back_rbs) != (2, 3):
+            vsr_name += f"_rb{args.front_rbs}x{args.back_rbs}"
+    return net_g, vsr_name
+
+
 def _timed(seconds: dict, leg: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -227,26 +253,7 @@ def run(args: argparse.Namespace, device: Optional[torch.device] = None) -> Tupl
             _timed(seconds, f"make_leg_{tag}", make_blur_leg, data, tag, k, noise)
     print(f"run dir: {root}", flush=True)
 
-    if args.arch == "tof":
-        # raw-LR contract via the module-internal bicubic front-end
-        net_g = {"which_model_G": "TOF", "pre_upscale": True, "nframes": 5,
-                 "dtype": "bfloat16"}
-    elif args.arch == "duf":
-        # DUF's valid temporal 3D convs need the full 7-frame window
-        net_g = {"which_model_G": "DUF_16L", "nframes": 7, "dtype": "bfloat16"}
-    else:
-        net_g = {"which_model_G": "EDVR", "nf": args.nf, "nframes": 5,
-                 "groups": args.groups, "front_RBs": args.front_rbs,
-                 "back_RBs": args.back_rbs, "dtype": "bfloat16"}
-    # Non-default shape knobs are baked into the checkpoint name so a reused
-    # --root never serves an nf=32 init to an nf=64 eval.
-    vsr_name = f"vsr_{args.arch}" + (
-        f"_gd{args.groups}" if args.arch == "edvr" and args.groups != 8 else "")
-    if args.arch == "edvr":
-        if args.nf != 32:
-            vsr_name += f"_nf{args.nf}"
-        if (args.front_rbs, args.back_rbs) != (2, 3):
-            vsr_name += f"_rb{args.front_rbs}x{args.back_rbs}"
+    net_g, vsr_name = vsr_network(args)
     n_frames = int(net_g.get("nframes", 5))
     opts = {}
 
