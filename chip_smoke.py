@@ -301,22 +301,47 @@ Phases; any failure raises and exits non-zero:
               the meta leg's first 256 launches, the trained flows' mean
               |value| in px and share off the frame, and the largest call
               of each timed beside its plain version, its library call and
-              its bound. Prints a
+              its bound. The TOF and DUF protocol runs train in spawned
+              processes of their own beside the EDVR one (bn_protocol);
+              every check and timing at trained weights runs after all
+              three, alone on the card. Prints a
               `[quality] {json}` line. A script that calls phase_device and
               phase_build can run phase_quality, or one backbone's leg
               (quality_bn_leg), alone.
-The line before the last is the kernels' JSON record; the last line is
+ 17. tools    the JAX package's last tools, ported
+              (dynavsr_tpu_torch/tools/), each at its defaults: 17a the
+              convergence check (EDVR nf 32, 2 + 3 blocks, bf16, 300
+              updates on 6 synthetic clips; its PASS checked: the loss
+              below 0.7x its first value and val PSNR above bicubic), then
+              one update of the trained net with every K1-K3 call held
+              against the plain version and float64; 17b the EDVR-L step
+              check (one supervised step at batch 4, one second-order meta
+              step at batch 2, best of 3): finite losses, K1 = K2 = K3 = 4
+              launches a supervised step and K1 28, K2 24, K3 20, K8-K10 4
+              a meta step; 17c the op-level profiler over its seven
+              workloads (edvr_fwd, dcn, tof, duf, adapt_only, stream_step,
+              adapt at the JAX tool's shapes): the kernels each workload's
+              counters saw are the expected ones and show in its table,
+              whose top rows sum to at most its total; each table's top 10
+              printed, all in --out. Prints a `[tools] {json}` line.
+Every phase prints `[tag] phase N took X s` and how many kernel calls it
+held against their plain version; phases 4-6's clips are scored (host
+PSNR / SSIM) in phase 16, while its TOF and DUF runs train. The line before
+the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import concurrent.futures
 import contextlib
 import copy
 import functools
 import json
 import math
+import multiprocessing
 import os
 import os.path as osp
 import shutil
@@ -361,7 +386,7 @@ from dynavsr_tpu_torch.ops.dcn_ref import (
     deform_conv2d_ref,
 )
 from dynavsr_tpu_torch.ops.duf_filter_ref import dynamic_upsampling_filter_ref
-from dynavsr_tpu_torch.utils.observability import profile_trace
+from dynavsr_tpu_torch.utils.observability import busy_us, device_events, profile_trace
 from kernel_times import REPS, graph_ms, host_us
 from kernel_times import event_ms as cuda_ms
 
@@ -469,6 +494,11 @@ def reset_all_counts() -> None:
 
 def all_counts() -> dict:
     return {**dcn.launch_counts(), **warp.launch_counts(), **duf_filter.launch_counts()}
+
+
+# Kernel calls held against their plain version in this process, by kernel
+# (the comparisons add to it; each phase prints its share).
+HELD = collections.Counter()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -613,6 +643,7 @@ def against_plain(label, x, offset, mask, weight, bias, cot, gd, timed):
     }
     rows = []
     for name in names:
+        HELD[name] += 1
         err = max(float((g.float() - r.detach()).abs().max())
                   for g, r in zip(got[name], want[name]))
         scale = max(float(r.detach().abs().max()) for r in want[name])
@@ -737,6 +768,7 @@ def warp_against_plain(label, x, flow, cot, need_x, timed):
                      f"roofline {row['roofline']:.1%} (kernel {row['kernel_roofline']:.1%})")
         print(f"[{'timing' if timed else 'kernel'}] {line}")
         check(ok, f"{name} {label} {shape}: {err} > {tol * scale}")
+        HELD[name] += 1
         rows.append(row)
     return rows
 
@@ -831,6 +863,7 @@ def duf_against_plain(label, x, f, cot, need_x, timed):
                      f"(kernel {row['kernel_roofline']:.1%})")
         print(f"[{'timing' if timed else 'kernel'}] {line}")
         check(ok, f"{name} {label} {shape} {fdtype}: {err} > tolerance")
+        HELD[name] += 1
         rows.append(row)
     return rows
 
@@ -867,6 +900,7 @@ def tangent_against_plain(shape, gd, dtype, gen) -> None:
                 f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
         print(f"[kernel] {line}")
         check(ok, line)
+        HELD[name] += 1
 
 
 def phase_kernels() -> None:
@@ -950,7 +984,27 @@ def synthetic_clip(gen: torch.Generator, frames: int = CLIP_T, lr_h: int = LR_H,
     return lr.cpu().numpy(), hr.cpu().numpy()
 
 
-def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
+def score_clips(unscored: list, pool=None) -> None:
+    """Phases 4-6's timed clips scored (score_frames: host PSNR-Y / SSIM,
+    seconds a 16-frame 576x704 clip), each into its result, the second
+    half in `pool`'s processes where given; phase 16 runs it while its TOF
+    / DUF protocol runs train, so the card's timed clips share the host
+    with nothing."""
+    half = len(unscored) // 2 if pool is not None else len(unscored)
+    scores = [pool.submit(score_frames, sr, gt, True, crop)
+              for _, _, _, sr, gt, crop in unscored[half:]]
+    for i, (tag, mode, result, sr, gt, crop) in enumerate(unscored):
+        score = (score_frames(sr, gt, ycbcr=True, crop_border=crop) if i < half
+                 else scores[i - half].result())
+        result.update(psnr=score["psnr_avg"], ssim=score["ssim_avg"])
+        print(f"[{tag}] {mode} PSNR-Y {score['psnr_avg']:.3f} SSIM {score['ssim_avg']:.4f} "
+              f"(crop {crop})")
+    unscored.clear()
+
+
+def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray,
+               unscored: list):
+    """Phase 4; each timed clip goes to `unscored` for score_clips."""
     vsr32 = define_G({"network_G": EDVR_M})  # the entry points' default device: the card
     init_weights(vsr32, gen)
     vsr16 = define_G({"network_G": {**EDVR_M, "dtype": "bfloat16"}})
@@ -968,7 +1022,7 @@ def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
         clip(model, seq=False)
 
     reset_all_counts()
-    results = {}
+    results, srs = {}, {}
     for dt_name, model in (("fp32", vsr32), ("bf16", vsr16)):
         for seq in (False, True):
             mode = f"{dt_name}-{'seq' if seq else 'windows'}"
@@ -983,21 +1037,20 @@ def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
             check(len(losses) == 5 and all(math.isfinite(v) for v in losses),
                   f"{mode}: adaptation losses {losses}")
             check(sr.shape == gt.shape and bool(np.isfinite(sr).all()), f"{mode}: SR output")
-            score = score_frames(sr, gt, ycbcr=True, crop_border=0)
-            results[mode] = dict(sr=sr, fps=CLIP_T / secs, secs=secs, peak=peak,
-                                 losses=losses, counts=counts, psnr=score["psnr_avg"],
-                                 ssim=score["ssim_avg"])
+            srs[mode] = sr
+            results[mode] = dict(fps=CLIP_T / secs, secs=secs, peak=peak, losses=losses,
+                                 counts=counts)
+            unscored.append(("main", mode, results[mode], sr, gt, 0))
             print(f"[main] {mode:13s} {CLIP_T / secs:.3f} frames/s ({secs:.3f} s/clip) "
-                  f"peak {peak / 2**30:.2f} GiB  PSNR-Y {score['psnr_avg']:.3f} "
-                  f"SSIM {score['ssim_avg']:.4f}  losses {[f'{v:.6f}' for v in losses]}  "
+                  f"peak {peak / 2**30:.2f} GiB  losses {[f'{v:.6f}' for v in losses]}  "
                   f"launches {counts}  [{smi}]")
     launches = all_counts()
     print(f"[main] launches over the four clips: {launches}")
     for name in DCN_KERNELS:
         check(launches[name] > 0, f"kernel {name} was never launched on the EDVR path")
 
-    d32 = float(np.abs(results["fp32-windows"]["sr"] - results["fp32-seq"]["sr"]).max())
-    d16 = float(np.abs(results["bf16-windows"]["sr"] - results["bf16-seq"]["sr"]).max())
+    d32 = float(np.abs(srs["fp32-windows"] - srs["fp32-seq"]).max())
+    d16 = float(np.abs(srs["bf16-windows"] - srs["bf16-seq"]).max())
     print(f"[main] max |windows - seq|: fp32 {d32:.3e} (limit 1e-4), bf16 {d16:.3e}")
     check(d32 <= 1e-4, f"fp32 window-batched and sequence mode differ by {d32}")
 
@@ -1025,9 +1078,8 @@ def phase_main(smi: str, gen: torch.Generator, lq: np.ndarray, gt: np.ndarray):
               f"{ {k: v['count'] for k, v in calls[dt_name].items()} }")
     # Phase 13 serves the same nets and holds its streams against these clips.
     ctx = dict(vsr32=vsr32, vsr16=vsr16, est=est, d16=d16,
-               sr={dt: results[f"{dt}-windows"]["sr"] for dt in ("fp32", "bf16")})
-    return launches, {k: {kk: vv for kk, vv in v.items() if kk != "sr"}
-                      for k, v in results.items()}, profiles, calls, ctx
+               sr={dt: srs[f"{dt}-windows"] for dt in ("fp32", "bf16")})
+    return launches, results, profiles, calls, ctx
 
 
 def record_dcn_calls(run) -> dict:
@@ -1081,12 +1133,13 @@ def duf_launches_per_clip(cfg: AdaptConfig) -> dict:
 
 def phase_bn_net(tag: str, net_g: dict, frames: int, kernels, expect_fn, swap, smi: str,
                  gen: torch.Generator, lq: np.ndarray, gt: np.ndarray, padding: str,
-                 crop: int):
+                 crop: int, unscored: list):
     """The DynaVSR loop for a BatchNorm backbone (TOF, DUF) at full width,
     fp32 and bf16, window-batched, through run_clip. `kernels` are the
     path's own, `expect_fn(cfg)` their launches a clip; `swap` = (module,
     attribute, plain function) is the op that the one-window check runs
-    both through the kernels and through the plain version."""
+    both through the kernels and through the plain version. Each timed clip
+    goes to `unscored` for score_clips."""
     opt = {"scale": SCALE, "network_G": net_g}
     net32 = define_G(opt)  # the entry points' default device: the card
     init_weights(net32, gen)
@@ -1126,13 +1179,11 @@ def phase_bn_net(tag: str, net_g: dict, frames: int, kernels, expect_fn, swap, s
             check(counts[name] == 0, f"{mode}: {tag} launched {name}")
         if dt_name == "fp32":
             launches, ctx = counts, dict(net=model, est=est, sr=sr)
-        score = score_frames(sr, gt, ycbcr=True, crop_border=crop)
         results[mode] = dict(fps=CLIP_T / secs, secs=secs, peak=peak, losses=losses,
-                             counts=counts, psnr=score["psnr_avg"], ssim=score["ssim_avg"])
+                             counts=counts)
+        unscored.append((tag, mode, results[mode], sr, gt, crop))
         print(f"[{tag}] {mode:18s} {CLIP_T / secs:.3f} frames/s ({secs:.3f} s/clip) "
-              f"peak {peak / 2**30:.2f} GiB  PSNR-Y {score['psnr_avg']:.3f} "
-              f"SSIM {score['ssim_avg']:.4f} (crop {crop})  "
-              f"losses {[f'{v:.6f}' for v in losses]}  "
+              f"peak {peak / 2**30:.2f} GiB  losses {[f'{v:.6f}' for v in losses]}  "
               f"launches {({k: counts[k] for k in kernels})} (a clip makes {expect})  [{smi}]")
     for k, v in net32.state_dict().items():
         if k in stats0:
@@ -1255,22 +1306,6 @@ def phase_recorded_timing(tag: str, calls: dict, profiles: dict, kernels, agains
     return rows
 
 
-def device_events(prof) -> list:
-    """A profiler's device events with a duration: kernels and copies."""
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0
-            and not getattr(e, "is_user_annotation", False)]
-
-
-def busy_us(events) -> float:
-    """The length of the union of the events' time ranges."""
-    busy, end = 0.0, -math.inf
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy
-
-
 def profile_clip(run, mode: str, smi: str, names) -> dict:
     """One clip under torch.profiler: device time by kernel, the share of
     the port's kernels `names` (with their PROLOGUES), and the device's
@@ -1304,11 +1339,11 @@ def profile_clip(run, mode: str, smi: str, names) -> dict:
     events, by_name, n_by_name = device_events(prof), {}, {}
     launches = {k: [] for k in sized}
     for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.us
         n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
         for k in sized:
             if f"{k}_kernel" in e.name:
-                launches[k].append((e.time_range.start, e.time_range.elapsed_us()))
+                launches[k].append((e.start_us, e.us))
     if not events:
         print(f"[profile] {mode}: the profiler recorded no device events (not measured)")
         return {}
@@ -1447,6 +1482,7 @@ def checked_dcn_calls(run, what: str) -> list:
             check(err <= lim, f"{what}: K1 call {len(rows)} {tuple(x.shape)} {x.dtype} vs "
                               f"{ref_name}: max|err| {err:.3e} > {lim:.3e}")
         rows.append(row)
+        HELD["dcn_fwd"] += 1
         return out
 
     edvr_module.deform_conv2d = checking
@@ -2248,6 +2284,7 @@ def checked_calls(run, module, plain: dict, keep=(), by_shape: bool = False,
                                             for w, e in zip(want, exact)) / unit)
                 row["ok"] = f64_held(row)
             rows.append(row)
+            HELD[row["name"]] += 1
             key = (name, tuple(args[0].shape)) if by_shape else name
             if name in keep and scale > 0 and (key not in kept or (
                     not by_shape and args[0].numel() > kept[key][0].numel())):
@@ -2805,6 +2842,7 @@ def warp_tangent_against_plain(label, x, flow, cflow, cot):
               f"{', '.join(f'{e:.3e} (tol {m:.3e})' for e, m in zip(errs, limits))} "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{fn.__name__} {label} {shape} {what}: {errs} > {limits}")
+        HELD[fn.__name__] += 1
 
 
 def tangent_timing_row(args, smi: str) -> dict:
@@ -3085,6 +3123,7 @@ def k1_vs_plain(calls: dict, what: str, chunk: int = 15) -> list:
               f"{plain_ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by})")
         check(label.startswith("infer"), f"{what}: {label} is not a forward call")
         check(err <= tol, f"{what}: K1 {label} differs from the plain DCN by {err} > {tol}")
+        HELD["dcn_fwd"] += 1
         rows.append(dict(name="dcn_fwd", label=label, dims=list(x.shape), count=call["count"],
                          max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by))
@@ -3325,7 +3364,7 @@ def device_share(prof, wall_us: float) -> dict:
     from a profiler's device events."""
     events, by_name = device_events(prof), {}
     for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.us
     if not events:
         return dict(wall_ms=wall_us / 1e3, note="no device events recorded (not measured)")
     busy = busy_us(events)
@@ -3846,6 +3885,7 @@ def phase_multi(smi: str, edvr: dict, reds: tuple, est_5f: str, root: str) -> di
                                    f"one-process split gradient (limit 1e-5)")
         for r, rr in enumerate((a, b)):
             check_only(rr["launches"], per_update, f"{tag} rank {r}")
+            HELD.update(c["name"] for c in rr["calls"])  # held in the rank's process
             bad = [c for c in rr["calls"] if not c["ok"]]
             check(rr["calls"] and not bad, f"{tag} rank {r}: calls off the plain op: {bad[:3]}")
         kinds = sorted({(c["name"], tuple(c["dims"])) for c in a["calls"]})
@@ -4106,6 +4146,7 @@ BN_QUALITY = {
 }
 WRAPPERS = {warp: ("warp_fwd", "warp_bwd", "warp_fwd_tangent", "warp_bwd_tangent"),
             duf_filter: DUF_KERNELS}
+BN_LEG_THREADS = 2  # host threads of each TOF / DUF leg's process in phase 16
 # The K12 launches of the TOF leg's meta run held against plain and float64
 # as they happen (16-2400 a run; checking them all cost ~30 s on the card).
 WATCHED_CALLS = 256
@@ -4356,7 +4397,7 @@ def quality_run(tag: str, argv: list, device, jax: dict, smi: str, watch=None) -
     return record, details, probe.batches.get(1), launches, secs
 
 
-def phase_quality(smi: str, root: str, device=None) -> tuple:
+def phase_quality(smi: str, root: str, device=None, while_training=None) -> tuple:
     """16: the blind-adaptation quality protocol
     (dynavsr_tpu_torch/tools/blind_adaptation_check.py) at the JAX tool's
     toy-shape leg, through the tool's functions, twice from one root: meta
@@ -4365,19 +4406,33 @@ def phase_quality(smi: str, root: str, device=None) -> tuple:
     of the iso1.8 leg (the meta-trained EDVR, its best lr) and every K1-K3,
     K8-K10 call of one meta update, held against the plain version, gauged
     against float64 and timed (checked_trained). Then the TOF and DUF legs
-    (quality_bn_leg). Needs only the card and a scratch directory: a script
-    that calls phase_device and phase_build can run it alone. Returns (the
-    reading, the timing rows, each kernel's launches in the meta run of its
+    (quality_bn_leg), whose protocol runs (bn_protocol) train in a process
+    pool beside the EDVR ones; `while_training(pool)` runs once those are
+    done. Needs only the card and a scratch directory: a script that calls
+    phase_device and phase_build can run it alone. Returns (the reading,
+    the timing rows, each kernel's launches in the meta run of its
     backbone)."""
     qroot, device = osp.join(root, "quality"), resolve_device(device)
     out, runs = {"jax": JAX_QUALITY}, {}
-    for meta_iters in (QUALITY_META_ITERS, 0):
-        runs[meta_iters] = quality_run(
-            f"16 meta {meta_iters}", QUALITY_ARGS + ["--meta-iters", str(meta_iters), "--root",
-                                                     qroot], device, JAX_QUALITY, smi)
-        record, details, _, launches, secs = runs[meta_iters]
-        out[f"meta{meta_iters}"] = dict(record=record, seconds=secs, legs=details["seconds"],
-                                        launches=launches)
+    # The TOF and DUF legs' protocol runs train in processes of their own
+    # beside the EDVR leg's (host-bound loops that leave the card mostly
+    # idle); every check and timing at trained weights runs after all
+    # three, alone on the card.
+    with concurrent.futures.ProcessPoolExecutor(
+            len(BN_QUALITY), mp_context=multiprocessing.get_context("spawn"),
+            initializer=torch.set_num_threads, initargs=(BN_LEG_THREADS,)) as pool:
+        bn_runs = {arch: pool.submit(bn_protocol, arch, smi, root) for arch in BN_QUALITY}
+        for meta_iters in (QUALITY_META_ITERS, 0):
+            runs[meta_iters] = quality_run(
+                f"16 meta {meta_iters}", QUALITY_ARGS + ["--meta-iters", str(meta_iters),
+                                                         "--root", qroot],
+                device, JAX_QUALITY, smi)
+            record, details, _, launches, secs = runs[meta_iters]
+            out[f"meta{meta_iters}"] = dict(record=record, seconds=secs,
+                                            legs=details["seconds"], launches=launches)
+        if while_training is not None:  # host work while the other legs train
+            while_training(pool)
+        bn_runs = {arch: f.result() for arch, f in bn_runs.items()}
     record, details, batch, launches, _ = runs[QUALITY_META_ITERS]
     check(details["mean_gain_db"] > 0.05,
           f"16: the meta run's mean adaptation gain {details['mean_gain_db']:.4f} dB is not "
@@ -4409,27 +4464,40 @@ def phase_quality(smi: str, root: str, device=None) -> tuple:
     launches = {k: launches[k] for k in DCN_KERNELS + TANGENT_KERNELS}
     rows += meta_rows
     for arch in BN_QUALITY:
-        out[arch], arch_rows, arch_launches = quality_bn_leg(arch, smi, root, device)
+        out[arch], arch_rows, arch_launches = quality_bn_leg(arch, smi, root, device,
+                                                             bn_runs[arch])
         rows += arch_rows
         launches.update(arch_launches)
     return out, rows, launches
 
 
-def quality_bn_leg(arch: str, smi: str, root: str, device) -> tuple:
-    """16 for TOF or DUF: the protocol with --arch at the JAX tool's leg
-    (BN_QUALITY_ARGS, 600 + 600 iterations, meta 150, bn_mode auto =
-    train_ema), PASS checked and the gain printed beside JAX's record; then
-    every K4 / K5 / K12 (K6 / K7) call of one adapted clip and of one meta
-    update at the trained weights held against the plain version, gauged
-    against float64 and the largest of each timed (checked_trained_bn).
-    Returns (the reading, the timing rows, the meta run's launches of the
-    backbone's kernels)."""
-    spec, tof = BN_QUALITY[arch], arch == "tof"
-    record, details, batch, launches, secs = quality_run(
+def bn_protocol(arch: str, smi: str, root: str, device=None) -> tuple:
+    """The TOF or DUF leg's protocol run: the tool with --arch at the JAX
+    tool's leg (BN_QUALITY_ARGS, 600 + 600 iterations, meta 150, bn_mode
+    auto = train_ema) through quality_run, the TOF meta run's K12 launches
+    watched; phase 16 runs it in a process of its own (its launches are
+    counted there), on BN_LEG_THREADS host threads. Returns quality_run's
+    (record, details, batch, launches, seconds)."""
+    device = resolve_device(device)
+    return quality_run(
         f"16 {arch} meta {QUALITY_META_ITERS}",
         BN_QUALITY_ARGS + ["--arch", arch, "--meta-iters", str(QUALITY_META_ITERS), "--root",
-                           osp.join(root, f"quality_{arch}")], device, spec["jax"], smi,
-        watch=(warp, "warp_bwd_tangent") if tof else None)
+                           osp.join(root, f"quality_{arch}")], device, BN_QUALITY[arch]["jax"],
+        smi, watch=(warp, "warp_bwd_tangent") if arch == "tof" else None)
+
+
+def quality_bn_leg(arch: str, smi: str, root: str, device, run: tuple = None) -> tuple:
+    """16 for TOF or DUF: the protocol run (`run`, bn_protocol's result;
+    by default made here), PASS checked and the gain printed beside JAX's
+    record; then every K4 / K5 / K12 (K6 / K7) call of one adapted clip and
+    of one meta update at the trained weights held against the plain
+    version, gauged against float64 and the largest of each timed
+    (checked_trained_bn). Returns (the reading, the timing rows, the meta
+    run's launches of the backbone's kernels)."""
+    spec, tof = BN_QUALITY[arch], arch == "tof"
+    if run is not None:  # held in bn_protocol's process
+        HELD.update(r["name"] for r in run[1].get("watched", ()))
+    record, details, batch, launches, secs = run or bn_protocol(arch, smi, root, device)
     check(details["mean_gain_db"] > 0.05,
           f"16 {arch}: the mean adaptation gain {details['mean_gain_db']:.4f} dB is not above "
           f"0.05 dB (the protocol's PASS)")
@@ -4457,80 +4525,182 @@ def quality_bn_leg(arch: str, smi: str, root: str, device) -> tuple:
     return out, rows + meta_rows, {k: launches[k] for k in WRAPPERS[spec["module"]]}
 
 
+# ---------------------------------------------------------------- phase 17
+# The JAX package's last tools, ported (dynavsr_tpu_torch/tools/), each at
+# its defaults: 17a the convergence check, 17b the EDVR-L step check, 17c
+# the op-level profiler over its seven workloads at the JAX tool's shapes.
+# The kernels each profiler workload launches (its own launch counters).
+PROFILE_LAUNCHES = {"edvr_fwd": ("dcn_fwd",), "dcn": ("dcn_fwd",), "tof": ("warp_fwd",),
+                    "duf": ("duf_fwd",), "adapt_only": DCN_KERNELS, "stream_step": ("dcn_fwd",),
+                    "adapt": DCN_KERNELS}
+PROFILE_ROWS = 10  # rows of each workload's table printed (the --out file holds 15)
+
+
+def phase_tools(smi: str, root: str, device=None) -> dict:
+    """17a-17c; returns the readings. A script that calls phase_device and
+    phase_build can run it alone."""
+    from dynavsr_tpu_torch.tools import convergence_check, edvr_l_step_check, profile_ops
+
+    device, out = resolve_device(device), {}
+    # 17a: the convergence check; then one training update of the trained
+    # net with every K1-K3 call held against the plain version and float64.
+    t0 = time.perf_counter()
+    record, details = convergence_check.run(convergence_check.build_parser().parse_args([]),
+                                            device, root=osp.join(root, "convergence"))
+    secs = time.perf_counter() - t0
+    print(f"[tools] 17a convergence check (EDVR nf {record['nf']}, 2 + 3 blocks, bf16, "
+          f"{record['iters']} updates): val PSNR bicubic {record['psnr_bicubic']:.4f} dB, "
+          f"trained {record['psnr_trained']:.4f} dB; l_pix {record['l_pix']}; "
+          f"{record['ms_per_update']:.3f} ms an update; {secs:.1f} s; PASS {record['pass']}  "
+          f"[{smi}]")
+    check(record["pass"], f"17a: the convergence check failed: {record}")
+    model = details["model"]
+    model.feed_data(details["batch"])
+    calls, _ = checked_calls(model.optimize_parameters, dcn,
+                             {n: PLAIN_DCN_CALLS[n] for n in DCN_WRAPPERS}, f64=True)
+    by_kernel = {}
+    for r in calls:
+        n, e = by_kernel.get(r["name"], (0, 0.0))
+        by_kernel[r["name"]] = (n + 1, max(e, r["max_abs_err"] / max(r["tol"], 1e-30)))
+    print(f"[tools] 17a one update's kernel calls vs plain at trained weights: "
+          f"{ {k: f'{n} calls, worst {e:.3f} of tol' for k, (n, e) in by_kernel.items()} }")
+    check(all(r["ok"] for r in calls), f"17a: calls off their plain version: "
+          f"{[r for r in calls if not r['ok']][:3]}")
+    check({k: n for k, (n, _) in by_kernel.items()} == dict.fromkeys(DCN_KERNELS, 4),
+          f"17a: a training update's calls {by_kernel}")
+    out["17a"] = dict(record=record, seconds=secs,
+                      calls={k: list(v) for k, v in by_kernel.items()})
+    del model, details
+    torch.cuda.empty_cache()
+
+    # 17b: the EDVR-L step check.
+    t0 = time.perf_counter()
+    record, net = edvr_l_step_check.run(edvr_l_step_check.build_parser().parse_args([]),
+                                        device)
+    secs = time.perf_counter() - t0
+    sup, meta = record["supervised"], record["meta"]
+    print(f"[tools] 17b EDVR-L step check ({record['params'] / 1e6:.2f} M parameters): "
+          f"supervised batch {record['batch']} best {sup['best_s']:.4f} s of {sup['times']}, "
+          f"l_pix {sup['losses']}, launches {sup['launches']}; meta batch "
+          f"{record['meta_batch']} best {meta['best_s']:.4f} s of {meta['times']}, l_outer "
+          f"{meta['losses']}, launches {meta['launches']}; {secs:.1f} s  [{smi}]")
+    check(record["finite"], f"17b: a loss is not finite: {record}")
+    check(sup["launches"] == dict.fromkeys(DCN_KERNELS, 4),
+          f"17b: a supervised step launched {sup['launches']}")
+    check(meta["launches"] == META_LAUNCHES, f"17b: a meta step launched {meta['launches']}")
+    out["17b"] = dict(record=record, seconds=secs)
+    del net
+    torch.cuda.empty_cache()
+
+    # 17c: the profiler's workloads; each port kernel its counters saw shows
+    # in its table, and the top rows sum to at most the profiled time.
+    out["17c"] = {}
+    for name in profile_ops.WORKLOADS:
+        t0 = time.perf_counter()
+        res = profile_ops.profile_workload(name, device,
+                                           trace_dir=osp.join(root, "profile_ops", name))
+        res.pop("raw")
+        res["seconds"] = time.perf_counter() - t0
+        top = ", ".join(f"{label} {ms:.3f}" for label, ms in res["rows"][:PROFILE_ROWS])
+        print(f"[tools] 17c {name}: top {PROFILE_ROWS} of {res['total_ms']:.3f} ms {res['on']} "
+              f"time a call (busy {res['busy_ms']} ms, window {res['window_ms']:.3f} ms; "
+              f"launches {res['launches']}; calls a profile {res['calls']}, profiles "
+              f"{res['tries']}): {top}; {res['seconds']:.1f} s  [{smi}]")
+        check(res["on"] == "device", f"17c {name}: the profile holds no device events")
+        check(set(res["launches"]) == set(PROFILE_LAUNCHES[name]),
+              f"17c {name}: launched {res['launches']}, expected {PROFILE_LAUNCHES[name]}")
+        missing = [k for k in res["launches"]
+                   if res["by_label"].get(profile_ops.launch_label(k), 0.0) <= 0.0]
+        check(not missing, f"17c {name}: {missing} launched but not in the profile")
+        check(res["top_ms"] <= res["total_ms"] * (1 + 1e-9),
+              f"17c {name}: top rows {res['top_ms']} ms > total {res['total_ms']} ms")
+        out["17c"][name] = res
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     args = ap.parse_args()
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    phase_kernels()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    lq, gt = synthetic_clip(gen)
-    edvr_launches, main_results, profiles, calls, edvr_ctx = phase_main(smi, gen, lq, gt)
-    tof_launches, tof_results, tof_profiles, warp_calls, tof_ctx = phase_bn_net(
-        "tof", TOF_G, TOF_FRAMES, WARP_KERNELS, warp_launches_per_clip,
-        (tof_module, "warp_nchw", grid_sample_ref.warp_nchw), smi, gen, lq, gt,
-        padding="reflection", crop=0)
-    with torch.no_grad():  # DUF's blur-matched LR of the same HR clip
-        duf_lq = duf_downsample(torch.as_tensor(gt, device="cuda"), SCALE).cpu().numpy()
-    check(duf_lq.shape == lq.shape, f"duf_downsample gave {duf_lq.shape}, not {lq.shape}")
-    duf_launches, duf_results, duf_profiles, duf_calls, duf_ctx = phase_bn_net(
-        "duf", DUF_G, DUF_FRAMES, DUF_KERNELS, duf_launches_per_clip,
-        (duf_module, "dynamic_upsampling_filter", dynamic_upsampling_filter_ref), smi, gen,
-        duf_lq, gt, padding="new_info", crop=DUF_CROP)
-    rows = phase_timing(calls, profiles, smi)
-    rows += phase_recorded_timing("tof", warp_calls, tof_profiles, WARP_KERNELS,
-                                  warp_against_plain)
-    rows += phase_recorded_timing("duf", duf_calls, duf_profiles, DUF_KERNELS,
-                                  duf_against_plain)
-    t_surface = time.perf_counter()
-    surface = phase_surface(smi, gen, lq, duf_lq)
-    surface["seconds"] = time.perf_counter() - t_surface
+    phase_seconds, phase_held = {}, {}
+
+    @contextlib.contextmanager
+    def timed(n: int, tag: str):
+        t0, held0 = time.perf_counter(), HELD.copy()
+        yield
+        phase_seconds[n], phase_held[n] = time.perf_counter() - t0, dict(HELD - held0)
+        print(f"[{tag}] phase {n} took {phase_seconds[n]:.1f} s; kernel calls held against "
+              f"plain: {sum(phase_held[n].values())} {phase_held[n]}")
+
+    with timed(1, "device"):
+        smi = phase_device()
+    with timed(2, "build"):
+        phase_build()
+    with timed(3, "kernels"):
+        phase_kernels()
+    unscored = []  # phases 4-6's clips, scored in phase 16 (score_clips)
+    with timed(4, "main"):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        lq, gt = synthetic_clip(gen)
+        edvr_launches, main_results, profiles, calls, edvr_ctx = phase_main(
+            smi, gen, lq, gt, unscored)
+    with timed(5, "tof"):
+        tof_launches, tof_results, tof_profiles, warp_calls, tof_ctx = phase_bn_net(
+            "tof", TOF_G, TOF_FRAMES, WARP_KERNELS, warp_launches_per_clip,
+            (tof_module, "warp_nchw", grid_sample_ref.warp_nchw), smi, gen, lq, gt,
+            padding="reflection", crop=0, unscored=unscored)
+    with timed(6, "duf"):
+        with torch.no_grad():  # DUF's blur-matched LR of the same HR clip
+            duf_lq = duf_downsample(torch.as_tensor(gt, device="cuda"), SCALE).cpu().numpy()
+        check(duf_lq.shape == lq.shape, f"duf_downsample gave {duf_lq.shape}, not {lq.shape}")
+        duf_launches, duf_results, duf_profiles, duf_calls, duf_ctx = phase_bn_net(
+            "duf", DUF_G, DUF_FRAMES, DUF_KERNELS, duf_launches_per_clip,
+            (duf_module, "dynamic_upsampling_filter", dynamic_upsampling_filter_ref), smi,
+            gen, duf_lq, gt, padding="new_info", crop=DUF_CROP, unscored=unscored)
+    with timed(7, "timing"):
+        rows = phase_timing(calls, profiles, smi)
+        rows += phase_recorded_timing("tof", warp_calls, tof_profiles, WARP_KERNELS,
+                                      warp_against_plain)
+        rows += phase_recorded_timing("duf", duf_calls, duf_profiles, DUF_KERNELS,
+                                      duf_against_plain)
+    with timed(8, "surface"):
+        surface = phase_surface(smi, gen, lq, duf_lq)
     reds_8a = surface.pop("_8a")
-    print(f"[surface] phase 8 took {surface['seconds']:.1f} s")
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
-        t_train = time.perf_counter()
-        reds_gt, reds_lq = write_train_lmdbs(gen, root)
-        print(f"[train] wrote {len(TRAIN_CLIPS)} clips x {TRAIN_T} frames of "
-              f"{REDS_H * SCALE}x{REDS_W * SCALE} GT / {REDS_H}x{REDS_W} LQ as raw LMDBs in "
-              f"{time.perf_counter() - t_train:.1f} s")
-        training, train_rows = phase_train(smi, reds_gt, reds_lq, root)
-        training["seconds"] = time.perf_counter() - t_train
-        print(f"[train] phase 9 took {training['seconds']:.1f} s")
-        t_meta = time.perf_counter()
-        meta, meta_rows, meta_launches = phase_meta(smi, gen, reds_gt, root)
-        meta["seconds"] = time.perf_counter() - t_meta
-        print(f"[meta] phase 10 took {meta['seconds']:.1f} s")
-        t_meta2 = time.perf_counter()
-        meta2, meta2_rows, meta2_launches = phase_meta2(smi, gen, meta["vimeo_lmdb"],
-                                                        meta["10a"]["final"], root)
-        meta2["seconds"] = time.perf_counter() - t_meta2
-        print(f"[meta2] phase 11 took {meta2['seconds']:.1f} s")
-        t_tiles = time.perf_counter()
-        tiles = phase_tiles(smi, gen, dict(duf_ctx, lq=duf_lq), reds_8a)
-        tiles["seconds"] = time.perf_counter() - t_tiles
-        print(f"[tiles] phase 12 took {tiles['seconds']:.1f} s")
-        t_stream = time.perf_counter()
-        stream = phase_stream(smi, gen, lq, duf_lq, edvr_ctx, tof_ctx, duf_ctx,
-                              osp.join(root, "trace"))
-        stream["seconds"] = time.perf_counter() - t_stream
-        print(f"[stream] phase 13 took {stream['seconds']:.1f} s")
-        t_multi = time.perf_counter()
-        multi = phase_multi(smi, edvr_ctx, (reds_gt, reds_lq), meta["est_5f"], root)
-        multi["seconds"] = time.perf_counter() - t_multi
-        print(f"[multi] phase 14 took {multi['seconds']:.1f} s")
-        t_large = time.perf_counter()
-        edvr_l, edvr_l_rows, edvr_l_launches = phase_edvr_l(
-            smi, gen, lq, gt, edvr_ctx, main_results, (reds_gt, reds_lq), meta, meta2, root)
-        edvr_l["seconds"] = time.perf_counter() - t_large
-        print(f"[edvr_l] phase 15 took {edvr_l['seconds']:.1f} s")
-        t_quality = time.perf_counter()
-        quality, quality_rows, quality_launches = phase_quality(smi, root)
-        quality["seconds"] = time.perf_counter() - t_quality
-        print(f"[quality] phase 16 took {quality['seconds']:.1f} s")
+        with timed(9, "train"):
+            t_train = time.perf_counter()
+            reds_gt, reds_lq = write_train_lmdbs(gen, root)
+            print(f"[train] wrote {len(TRAIN_CLIPS)} clips x {TRAIN_T} frames of "
+                  f"{REDS_H * SCALE}x{REDS_W * SCALE} GT / {REDS_H}x{REDS_W} LQ as raw LMDBs in "
+                  f"{time.perf_counter() - t_train:.1f} s")
+            training, train_rows = phase_train(smi, reds_gt, reds_lq, root)
+        with timed(10, "meta"):
+            meta, meta_rows, meta_launches = phase_meta(smi, gen, reds_gt, root)
+        with timed(11, "meta2"):
+            meta2, meta2_rows, meta2_launches = phase_meta2(smi, gen, meta["vimeo_lmdb"],
+                                                            meta["10a"]["final"], root)
+        with timed(12, "tiles"):
+            tiles = phase_tiles(smi, gen, dict(duf_ctx, lq=duf_lq), reds_8a)
+        with timed(13, "stream"):
+            stream = phase_stream(smi, gen, lq, duf_lq, edvr_ctx, tof_ctx, duf_ctx,
+                                  osp.join(root, "trace"))
+        with timed(14, "multi"):
+            multi = phase_multi(smi, edvr_ctx, (reds_gt, reds_lq), meta["est_5f"], root)
+        with timed(15, "edvr_l"):
+            edvr_l, edvr_l_rows, edvr_l_launches = phase_edvr_l(
+                smi, gen, lq, gt, edvr_ctx, main_results, (reds_gt, reds_lq), meta, meta2,
+                root)
+        with timed(16, "quality"):
+            quality, quality_rows, quality_launches = phase_quality(
+                smi, root, while_training=lambda pool: score_clips(unscored, pool))
+        with timed(17, "tools"):
+            tools = phase_tools(smi, root)
+    for n, reading in enumerate((surface, training, meta, meta2, tiles, stream, multi, edvr_l,
+                                 quality, tools), start=8):
+        reading["seconds"] = phase_seconds[n]
     rows += train_rows + meta_rows + meta2_rows + edvr_l_rows + quality_rows
     # Each kernel's launches are those of the path that runs it (counts set
     # to 0 just before that path and read just after).
@@ -4603,7 +4773,8 @@ def main() -> None:
             json.dump({"device": smi, "kernels": rows, "main": main_results, "tof": tof_results,
                        "duf": duf_results, "surface": surface, "train": training,
                        "meta": meta, "meta2": meta2, "tiles": tiles, "stream": stream,
-                       "multi": multi, "edvr_l": edvr_l, "quality": quality,
+                       "multi": multi, "edvr_l": edvr_l, "quality": quality, "tools": tools,
+                       "phase_seconds": phase_seconds, "phase_held": phase_held,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print("[train] " + json.dumps(training))
@@ -4614,6 +4785,7 @@ def main() -> None:
     print("[multi] " + json.dumps(multi, default=str))
     print("[edvr_l] " + json.dumps(edvr_l, default=str))
     print("[quality] " + json.dumps(quality, default=str))
+    print("[tools] " + json.dumps(tools, default=str))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

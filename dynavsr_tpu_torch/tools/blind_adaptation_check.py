@@ -63,8 +63,8 @@ from dynavsr_tpu_torch.data.resize import imresize
 from dynavsr_tpu_torch.device import resolve_device
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
 
-__all__ = ["parse_kernel", "make_gt", "make_blur_leg", "build_parser", "vsr_network", "run",
-           "main"]
+__all__ = ["parse_kernel", "to_u8", "put_frame", "make_gt", "make_blur_leg", "build_parser",
+           "vsr_network", "run", "main"]
 
 
 def parse_kernel(spec: str) -> Tuple[str, np.ndarray, float]:
@@ -89,11 +89,14 @@ def parse_kernel(spec: str) -> Tuple[str, np.ndarray, float]:
         f"bad kernel spec {spec!r} (iso:S | aniso:SX:SY:THETA, optional :nSIG)")
 
 
-def _u8(img: np.ndarray) -> np.ndarray:
+def to_u8(img: np.ndarray) -> np.ndarray:
+    """[0, 1] floats -> uint8, rounded as the JAX tool writes its PNGs."""
     return (np.clip(img, 0, 1) * 255).round().astype(np.uint8)
 
 
-def _put(writer: LmdbWriter, clip: str, i: int, frame: np.ndarray) -> None:
+def put_frame(writer: LmdbWriter, clip: str, i: int, frame: np.ndarray) -> None:
+    """Frame i of `clip` as raw bytes under '<clip>_<i:08d>', its shape
+    under '<key>.meta' (data/lmdb_dataset.py reads both)."""
     key = f"{clip}_{i:08d}".encode()
     writer.put(key, np.ascontiguousarray(frame).tobytes())
     writer.put(key + b".meta", "x".join(map(str, frame.shape)).encode())
@@ -124,7 +127,7 @@ def make_gt(root: str, seed: int, n_clips: int = 4, frames: int = 14, gh: int = 
                 gt = gt.clamp(0, 1).permute(1, 2, 0).contiguous()
                 lr_bic = imresize(gt, 0.25)
                 for leg, img in (("GT", gt), ("LQ_bic", lr_bic)):
-                    _put(writers[(split, leg)], f"{c:03d}", i, _u8(img.numpy()))
+                    put_frame(writers[(split, leg)], f"{c:03d}", i, to_u8(img.numpy()))
     finally:
         for w in writers.values():
             w.close()
@@ -153,7 +156,7 @@ def make_blur_leg(root: str, tag: str, kernel: np.ndarray, noise_sigma: float = 
                     name = key.decode().rpartition("_")[2]
                     nrng = np.random.default_rng(zlib.crc32(f"{tag}/{clip}/{name}.png".encode()))
                     lr = lr + nrng.normal(0.0, noise_sigma, lr.shape).astype(np.float32)
-                _put(w, clip, i, _u8(lr))
+                put_frame(w, clip, i, to_u8(lr))
 
 
 def build_parser() -> argparse.ArgumentParser:

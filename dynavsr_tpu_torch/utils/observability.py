@@ -7,20 +7,25 @@
 * profile_trace: a torch.profiler trace around a block (CPU activity, and
   CUDA on a card), written as a Chrome trace into `log_dir` by
   tensorboard_trace_handler (TensorBoard's profile tab, Perfetto).
+* device_events / busy_us: a finished profile's device events (kernels,
+  copies, memsets) read from its Kineto results, and the length of their
+  union.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import os.path as osp
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["MetricsWriter", "StepTimer", "profile_trace"]
+__all__ = ["MetricsWriter", "StepTimer", "profile_trace", "DeviceEvent", "device_events",
+           "busy_us"]
 
 
 class MetricsWriter:
@@ -83,3 +88,34 @@ def profile_trace(log_dir: str, enabled: bool = True):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+class DeviceEvent(NamedTuple):
+    """One device event of a profile: its name and its span (us)."""
+    name: str
+    start_us: float
+    end_us: float
+
+    @property
+    def us(self) -> float:
+        return self.end_us - self.start_us
+
+
+def device_events(prof) -> List[DeviceEvent]:
+    """A finished torch.profiler run's device events with a duration
+    (kernels, copies, memsets; no user annotation), read from its Kineto
+    results: prof.events() builds the whole host-op tree first, which
+    takes some 40x as long on a trace of many small operations."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [DeviceEvent(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and e.duration_ns() > 0 and not e.is_user_annotation()]
+
+
+def busy_us(events) -> float:
+    """The length of the union of the events' spans (us)."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.start_us, e.end_us) for e in events):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
