@@ -51,6 +51,7 @@ import torch.nn as nn
 from dynavsr_tpu_torch.data.windows import all_windows
 from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.losses import charbonnier_loss
+from dynavsr_tpu_torch.utils.observability import span
 
 __all__ = ["AdaptConfig", "chunked_apply", "has_batch_norm", "resolve_bn_mode",
            "make_adapt_fn", "make_adapt_and_infer", "make_adapt_and_infer_seq", "seq_forward",
@@ -131,23 +132,26 @@ def make_adapt_fn(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
         mode = resolve_bn_mode(cfg.bn_mode, meta_model)
         if mode not in ("train_ema", "grad_stats"):
             raise ValueError(f"unknown bn_mode {cfg.bn_mode!r}")
-        model = copy.deepcopy(meta_model)
-        forward = (mutable_apply_fn or _train_mode_apply) if mode == "train_ema" else apply
-        stats = _running_stats(model) if mode == "grad_stats" else []
-        for buf in stats:
-            buf.requires_grad_(True)
-        opt = _make_opt(cfg, [*model.parameters(), *stats])
-        losses = []
-        for _ in range(cfg.n_steps):
-            opt.zero_grad(set_to_none=True)
-            loss = charbonnier_loss(forward(model, slr_windows), lr_centers,
-                                    reduction=cfg.reduction)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        for buf in stats:
-            buf.requires_grad_(False)
-        out = torch.stack(losses) if losses else torch.zeros(0, device=lr_centers.device)
+        with span("adaptation"):
+            with span("adaptation.copy"):
+                model = copy.deepcopy(meta_model)
+            forward = (mutable_apply_fn or _train_mode_apply) if mode == "train_ema" else apply
+            stats = _running_stats(model) if mode == "grad_stats" else []
+            for buf in stats:
+                buf.requires_grad_(True)
+            opt = _make_opt(cfg, [*model.parameters(), *stats])
+            losses = []
+            for _ in range(cfg.n_steps):
+                with span("adaptation.step"):
+                    opt.zero_grad(set_to_none=True)
+                    loss = charbonnier_loss(forward(model, slr_windows), lr_centers,
+                                            reduction=cfg.reduction)
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.detach())
+            for buf in stats:
+                buf.requires_grad_(False)
+            out = torch.stack(losses) if losses else torch.zeros(0, device=lr_centers.device)
         return model, out
 
     return adapt
@@ -167,7 +171,7 @@ def make_adapt_and_infer(cfg: AdaptConfig, apply_fn: Optional[Callable] = None,
 
     def run(meta_model, slr_windows, lr_centers, lr_windows):
         adapted, losses = adapt(meta_model, slr_windows, lr_centers)
-        with torch.no_grad():
+        with span("clip.infer"), torch.no_grad():
             sr = chunked_apply(lambda w: apply(adapted, w), lr_windows, cfg.infer_chunk)
         return sr, losses
 
@@ -187,7 +191,7 @@ def make_adapt_and_infer_seq(cfg: AdaptConfig, apply_fn: Optional[Callable] = No
 
     def run(meta_model, slr_windows, lr_centers, frames, win_idx):
         adapted, losses = adapt(meta_model, slr_windows, lr_centers)
-        with torch.no_grad():
+        with span("clip.infer"), torch.no_grad():
             sr = seq_forward(adapted, frames, win_idx, cfg.infer_chunk)
         return sr, losses
 

@@ -56,6 +56,7 @@ from dynavsr_tpu_torch.models.padding import (
 from dynavsr_tpu_torch.models.video_base_model import check_n_devices
 from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
+from dynavsr_tpu_torch.utils.observability import count, span
 
 __all__ = ["run_clip", "run_clips", "build_estimator", "adapt_config", "main", "run"]
 
@@ -82,30 +83,44 @@ def run_clip(vsr, est, lq: np.ndarray, gt: Optional[np.ndarray], cfg: AdaptConfi
     see device.resolve_device), where vsr and est must already be
     (define_G / build_estimator with the same device). Returns (sr (T, H, W, 3), scores),
     with the per-step adaptation losses under scores['adapt_losses']."""
-    device, seq, apply, mutable = _setup(vsr, est, cfg, seq, scale, device, tile, tile_overlap)
-    which = vsr.arch
-    t, h, w = lq.shape[:3]
-    win = all_windows(t, n_frames, padding)
-    adapt_windows = torch.as_tensor(lq[win[: min(n_adapt, t)]], device=device)
-    with torch.no_grad():
-        slr_windows = est(adapt_windows)
-    lr_centers = adapt_windows[:, n_frames // 2]
-    if seq:
-        # Mod-pad the clip once: the same math as padding each window.
-        mod = arch_mod(which)
-        ph, pw = (-h) % mod, (-w) % mod
-        frames = np.pad(lq, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="reflect") \
-            if ph or pw else lq
-        run = make_adapt_and_infer_seq(cfg, apply_fn=apply, mutable_apply_fn=mutable)
-        sr, losses = run(vsr, slr_windows, lr_centers, torch.as_tensor(frames, device=device),
-                         torch.as_tensor(win, dtype=torch.long, device=device))
-        sr = sr[:, : h * scale, : w * scale]
-    else:
-        run = make_adapt_and_infer(cfg, apply_fn=apply, mutable_apply_fn=mutable)
-        sr, losses = run(vsr, slr_windows, lr_centers, torch.as_tensor(lq[win], device=device))
-    sr = sr.cpu().numpy()
-    res = score_frames(sr, gt, ycbcr=ycbcr, crop_border=crop_border, save_dir=save_dir)
-    res["adapt_losses"] = losses.cpu().tolist()
+    with span("clip"):
+        device, seq, apply, mutable = _setup(vsr, est, cfg, seq, scale, device, tile,
+                                             tile_overlap)
+        which = vsr.arch
+        t, h, w = lq.shape[:3]
+        win = all_windows(t, n_frames, padding)
+        with span("clip.slr"):
+            adapt_windows = torch.as_tensor(lq[win[: min(n_adapt, t)]], device=device)
+            count("h2d_bytes", adapt_windows.nbytes)
+            with torch.no_grad():
+                slr_windows = est(adapt_windows)
+        lr_centers = adapt_windows[:, n_frames // 2]
+        if seq:
+            # Mod-pad the clip once: the same math as padding each window.
+            mod = arch_mod(which)
+            ph, pw = (-h) % mod, (-w) % mod
+            frames = np.pad(lq, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="reflect") \
+                if ph or pw else lq
+            run = make_adapt_and_infer_seq(cfg, apply_fn=apply, mutable_apply_fn=mutable)
+            with span("clip.upload"):
+                frames = torch.as_tensor(frames, device=device)
+                win_idx = torch.as_tensor(win, dtype=torch.long, device=device)
+                count("h2d_bytes", frames.nbytes + win_idx.nbytes)
+            sr, losses = run(vsr, slr_windows, lr_centers, frames, win_idx)
+            sr = sr[:, : h * scale, : w * scale]
+        else:
+            run = make_adapt_and_infer(cfg, apply_fn=apply, mutable_apply_fn=mutable)
+            with span("clip.upload"):
+                lr_windows = torch.as_tensor(lq[win], device=device)
+                count("h2d_bytes", lr_windows.nbytes)
+            sr, losses = run(vsr, slr_windows, lr_centers, lr_windows)
+        with span("clip.download"):
+            count("d2h_bytes", sr.nbytes)
+            sr = sr.cpu().numpy()
+        with span("clip.score"):
+            res = score_frames(sr, gt, ycbcr=ycbcr, crop_border=crop_border, save_dir=save_dir)
+        count("d2h_bytes", losses.nbytes)
+        res["adapt_losses"] = losses.cpu().tolist()
     return sr, res
 
 

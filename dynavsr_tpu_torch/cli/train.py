@@ -66,7 +66,7 @@ from dynavsr_tpu_torch.cli.test_dynavsr import build_estimator
 from dynavsr_tpu_torch.models.video_base_model import create_model
 from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.checkpoint import load_pretrained
-from dynavsr_tpu_torch.utils.observability import MetricsWriter
+from dynavsr_tpu_torch.utils.observability import MetricsWriter, span
 from dynavsr_tpu_torch.utils.util import mkdir_and_rename, mkdirs, set_random_seed, setup_logger
 
 __all__ = ["main", "train", "synthesize_meta_batch", "synthesize_downscaler_batch",
@@ -92,12 +92,13 @@ def synthesize_meta_batch(gen: torch.Generator, hr, scale: int,
     estimator-in-the-loop training) instead of the same-kernel synthesis.
     share = (first row, global batch) for a rank's rows of a global batch
     (data/degradations.synthesize_pair)."""
-    hr = torch.as_tensor(hr, dtype=torch.float32, device=gen.device)
-    lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range, share=share)
-    if estimator is not None:
-        slr = estimator(lr)
-    c = hr.shape[1] // 2
-    return {"SLR": slr, "LR": lr, "LR_center": lr[:, c], "HR_center": hr[:, c]}
+    with span("meta.synth"):
+        hr = torch.as_tensor(hr, dtype=torch.float32, device=gen.device)
+        lr, slr, _ = synthesize_pair(gen, hr, scale, noise_range=noise_range, share=share)
+        if estimator is not None:
+            slr = estimator(lr)
+        c = hr.shape[1] // 2
+        return {"SLR": slr, "LR": lr, "LR_center": lr[:, c], "HR_center": hr[:, c]}
 
 
 def synthesize_downscaler_batch(gen: torch.Generator, hr, scale: int,

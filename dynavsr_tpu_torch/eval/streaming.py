@@ -65,6 +65,7 @@ import torch.nn as nn
 from dynavsr_tpu_torch.adapt.adaptation import AdaptConfig, make_adapt_fn
 from dynavsr_tpu_torch.data.windows import index_generation
 from dynavsr_tpu_torch.models.padding import make_model_apply
+from dynavsr_tpu_torch.utils.observability import span
 
 __all__ = ["StreamingSR", "MultiStreamSR", "WindowStreamSR", "make_streaming_adapter"]
 
@@ -197,35 +198,37 @@ class _StreamCore:
     def _ingest(self, frames: torch.Tensor) -> None:
         """Write arrival self._t's frames (B, h, w, 3) and, in pyramid mode,
         their features into slot t % R."""
-        slot = self._t % self._R
-        feats = None
-        if self._window_apply is None:
-            parts = [m.extract_pyramid(frames[sl]) for m, sl in self._blocks()]
-            feats = [torch.cat(level) if len(parts) > 1 else level[0]
-                     for level in zip(*parts)]
-        if self._rings is None:
-            def ring(t):
-                return torch.zeros((self._R, *t.shape), dtype=t.dtype, device=t.device)
-            self._rings = ([ring(f) for f in feats or ()], ring(frames))
-        for r, f in zip(self._rings[0], feats or ()):
-            r[slot] = f
-        self._rings[1][slot] = frames
+        with span("stream.ingest"):
+            slot = self._t % self._R
+            feats = None
+            if self._window_apply is None:
+                parts = [m.extract_pyramid(frames[sl]) for m, sl in self._blocks()]
+                feats = [torch.cat(level) if len(parts) > 1 else level[0]
+                         for level in zip(*parts)]
+            if self._rings is None:
+                def ring(t):
+                    return torch.zeros((self._R, *t.shape), dtype=t.dtype, device=t.device)
+                self._rings = ([ring(f) for f in feats or ()], ring(frames))
+            for r, f in zip(self._rings[0], feats or ()):
+                r[slot] = f
+            self._rings[1][slot] = frames
 
     def _emit(self, idx: torch.Tensor) -> torch.Tensor:
         """The SR frames (B, H, W, 3) of the window whose ring slots are idx."""
-        feat_rings, frame_ring = self._rings
-        frames_w = frame_ring[idx].transpose(0, 1)  # (B, N, h, w, 3)
-        feats_w = [r[idx].transpose(0, 1) for r in feat_rings]  # (B, N, C, h', w')
-        outs = []
-        for m, sl in self._blocks():
-            # A block's window as contiguous tensors, as the kernels take
-            # them (a copy unless the block is one stream).
-            if self._window_apply is not None:
-                outs.append(self._window_apply(m, frames_w[sl].contiguous()))
-            else:
-                l1, l2, l3 = (f[sl].contiguous() for f in feats_w)
-                outs.append(m.fuse_pyramid(l1, l2, l3, frames_w[sl, self.n // 2]))
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+        with span("stream.emit"):
+            feat_rings, frame_ring = self._rings
+            frames_w = frame_ring[idx].transpose(0, 1)  # (B, N, h, w, 3)
+            feats_w = [r[idx].transpose(0, 1) for r in feat_rings]  # (B, N, C, h', w')
+            outs = []
+            for m, sl in self._blocks():
+                # A block's window as contiguous tensors, as the kernels take
+                # them (a copy unless the block is one stream).
+                if self._window_apply is not None:
+                    outs.append(self._window_apply(m, frames_w[sl].contiguous()))
+                else:
+                    l1, l2, l3 = (f[sl].contiguous() for f in feats_w)
+                    outs.append(m.fuse_pyramid(l1, l2, l3, frames_w[sl, self.n // 2]))
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _ingest_emit(self, frames: torch.Tensor) -> List[Tuple[int, torch.Tensor]]:
         with torch.no_grad():
@@ -237,9 +240,10 @@ class _StreamCore:
 
     # ------------------------------------------------------------- warm-up
     def _device_frames(self, frames) -> torch.Tensor:
-        if torch.is_tensor(frames):
-            return frames.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        with span("stream.upload"):
+            if torch.is_tensor(frames):
+                return frames.to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
     def _warmup(self, k: int, max_n: int) -> List[Tuple[int, torch.Tensor]]:
         """Adapt on the first k windows of the buffered frames, then replay
@@ -267,12 +271,13 @@ class _StreamCore:
 
     # ------------------------------------------------------------- public
     def _push(self, frames) -> List[Tuple[int, torch.Tensor]]:
-        if not self._adapted:
-            self._raw.append(frames)
-            if len(self._raw) >= self._warm_need:
-                return self._warmup(self.k_adapt, _OPEN)
-            return []
-        return self._ingest_emit(self._device_frames(frames))
+        with span("stream.push"):
+            if not self._adapted:
+                self._raw.append(frames)
+                if len(self._raw) >= self._warm_need:
+                    return self._warmup(self.k_adapt, _OPEN)
+                return []
+            return self._ingest_emit(self._device_frames(frames))
 
     def _flush(self) -> List[Tuple[int, torch.Tensor]]:
         out = []

@@ -54,6 +54,7 @@ from dynavsr_tpu_torch.train.trainer import (
     make_schedule,
     make_train_step,
 )
+from dynavsr_tpu_torch.utils.observability import span
 
 __all__ = ["VideoBaseModel", "MetaModel", "DownscalerModel", "create_model",
            "trainer_config_from_opt", "check_n_devices"]
@@ -286,8 +287,9 @@ class MetaModel(VideoBaseModel):
 
     def feed_data(self, data: Mapping, need_GT: bool = True) -> None:
         """Tensors or numpy arrays (NHWC) -> float32 tensors on the device."""
-        self._batch = _to_device(data, ("SLR", "LR", "LR_center", "HR_center", "LQs"),
-                                 self.device)
+        with span("meta.feed"):
+            self._batch = _to_device(data, ("SLR", "LR", "LR_center", "HR_center", "LQs"),
+                                     self.device)
 
     def optimize_parameters(self, step: Optional[int] = None) -> None:
         if self.optimizer is None:
@@ -296,9 +298,11 @@ class MetaModel(VideoBaseModel):
             self._meta_step = make_meta_train_step(
                 self.netG, self.meta_cfg, self.optimizer, self.sched, self.cfg.grad_clip,
                 apply_fn=make_model_apply(self.netG.arch, self.scale))
-        metrics = self._meta_step(self._batch, self.step)
-        self.step += 1
-        self.log = {k: float(v) for k, v in metrics.items()}
+        with span("meta.step"):
+            metrics = self._meta_step(self._batch, self.step)
+            self.step += 1
+            with span("meta.log"):
+                self.log = {k: float(v) for k, v in metrics.items()}
 
 
 class DownscalerModel(VideoBaseModel):

@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from dynavsr_tpu_torch.parallel import mesh
 from dynavsr_tpu_torch.train.losses import charbonnier_loss
 from dynavsr_tpu_torch.train.trainer import apply_update
+from dynavsr_tpu_torch.utils.observability import span
 
 __all__ = ["MetaConfig", "meta_variables", "adapted_params", "meta_loss",
            "make_meta_train_step"]
@@ -118,24 +119,25 @@ def adapted_params(model: nn.Module, params: Params, slr: torch.Tensor,
     fwd = _forward(model, apply_fn)
     names = list(params)
     loss = None
-    for _ in range(cfg.inner_steps):
-        if cfg.use_remat:
-            pred = checkpoint(fwd, params, slr, use_reentrant=False)
-        else:
-            pred = fwd(params, slr)
-        loss = charbonnier_loss(pred, lr_center, reduction=cfg.reduction)
-        grads = torch.autograd.grad(loss, [params[k] for k in names],
-                                    create_graph=not cfg.first_order, allow_unused=True)
-        grads = _global_inner_grads(grads, [params[k] for k in names], cfg.reduction)
-        step = {}
-        for k, g in zip(names, grads):
-            if g is None:  # unused by the forward: a zero gradient, as in JAX
-                step[k] = params[k]
-                continue
-            if cfg.first_order:
-                g = g.detach()
-            step[k] = params[k] - cfg.inner_lr * g
-        params = step
+    with span("meta.inner"):
+        for _ in range(cfg.inner_steps):
+            if cfg.use_remat:
+                pred = checkpoint(fwd, params, slr, use_reentrant=False)
+            else:
+                pred = fwd(params, slr)
+            loss = charbonnier_loss(pred, lr_center, reduction=cfg.reduction)
+            grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                        create_graph=not cfg.first_order, allow_unused=True)
+            grads = _global_inner_grads(grads, [params[k] for k in names], cfg.reduction)
+            step = {}
+            for k, g in zip(names, grads):
+                if g is None:  # unused by the forward: a zero gradient, as in JAX
+                    step[k] = params[k]
+                    continue
+                if cfg.first_order:
+                    g = g.detach()
+                step[k] = params[k] - cfg.inner_lr * g
+            params = step
     return params, loss
 
 
@@ -163,9 +165,10 @@ def meta_loss(model: nn.Module, params: Params, batch: Mapping[str, torch.Tensor
     gradient (second order unless cfg.first_order)."""
     fast, inner = adapted_params(model, params, batch["SLR"], batch["LR_center"], cfg,
                                  apply_fn)
-    pred = _forward(model, apply_fn)(fast, batch["LR"])
-    outer = cfg.pixel_weight * charbonnier_loss(pred, batch["HR_center"],
-                                                reduction=cfg.reduction)
+    with span("meta.outer"):
+        pred = _forward(model, apply_fn)(fast, batch["LR"])
+        outer = cfg.pixel_weight * charbonnier_loss(pred, batch["HR_center"],
+                                                    reduction=cfg.reduction)
     return outer, inner
 
 
@@ -197,11 +200,13 @@ def make_meta_train_step(model: nn.Module, cfg: MetaConfig, optimizer: torch.opt
                   for k, t in zip(names, held)}
         optimizer.zero_grad(set_to_none=True)
         outer, inner = meta_loss(model, leaves, batch, cfg, apply_fn)
-        grads = torch.autograd.grad(outer, list(leaves.values()), allow_unused=True)
-        for t, g in zip(held, grads):
-            t.grad = torch.zeros_like(t) if g is None else g
-        mesh.all_reduce_grads(held, cfg.reduction)
-        gnorm = apply_update(optimizer, held, sched(count), grad_clip)
+        with span("meta.grad"):
+            grads = torch.autograd.grad(outer, list(leaves.values()), allow_unused=True)
+        with span("meta.optim"):
+            for t, g in zip(held, grads):
+                t.grad = torch.zeros_like(t) if g is None else g
+            mesh.all_reduce_grads(held, cfg.reduction)
+            gnorm = apply_update(optimizer, held, sched(count), grad_clip)
         losses = mesh.reduce_value(torch.stack([outer.detach(), inner.detach()]), cfg.reduction)
         return {"l_outer": losses[0], "l_inner": losses[1], "grad_norm": gnorm}
 

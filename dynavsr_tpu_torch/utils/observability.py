@@ -3,7 +3,11 @@
 * MetricsWriter: every scalar goes to `<log_dir>/metrics.jsonl` (one JSON
   object a step, appended), and to TensorBoard event files when
   torch.utils.tensorboard imports (it needs the tensorboard package).
-* StepTimer: wall-clock step time, its EMA, and throughput.
+* span / count: the program's own spans and counters, on while
+  torch.profiler records (and a single check otherwise). A span
+  is a host annotation `span:<name>` in the profile, on the device
+  events' clock; a count is an annotation `count:<name>:<n>` of its own,
+  so a profile's counts are read from that profile alone.
 * profile_trace: a torch.profiler trace around a block (CPU activity, and
   CUDA on a card), written as a Chrome trace into `log_dir` by
   tensorboard_trace_handler (TensorBoard's profile tab, Perfetto).
@@ -20,11 +24,12 @@ import math
 import os
 import os.path as osp
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["MetricsWriter", "StepTimer", "profile_trace", "DeviceEvent", "device_events",
+__all__ = ["MetricsWriter", "span", "count", "profile_trace", "DeviceEvent", "device_events",
            "busy_us"]
 
 
@@ -53,24 +58,31 @@ class MetricsWriter:
             self._tb.close()
 
 
-class StepTimer:
-    """EMA step-time / throughput meter (items = frames or samples)."""
+# Whether torch.profiler records on this thread (a bool from C++).
+_tracing = torch.autograd._profiler_enabled
 
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg: Optional[float] = None
-        self._t0: Optional[float] = None
+_OFF = contextlib.nullcontext()
 
-    def tick(self) -> None:
-        self._t0 = time.perf_counter()
 
-    def tock(self) -> float:
-        dt = time.perf_counter() - self._t0
-        self.avg = dt if self.avg is None else self.ema * self.avg + (1 - self.ema) * dt
-        return dt
+def span(name: str):
+    """A context manager around one piece of the program's work: while a
+    profiler records, torch.profiler.record_function("span:" + name), a
+    host annotation whose parent is the span that encloses it on this
+    thread; otherwise one shared no-op. Neither synchronises the device:
+    the device's time inside a span is read from the profile's device
+    events."""
+    if not _tracing():
+        return _OFF
+    return record_function("span:" + name)
 
-    def throughput(self, items: int) -> float:
-        return items / self.avg if self.avg else 0.0
+
+def count(name: str, n) -> None:
+    """Add n to the counter `name` while a profiler records, as an
+    annotation `count:<name>:<n>` in its profile (of a duration above zero,
+    as the annotation's own enter and exit take time); otherwise nothing."""
+    if _tracing():
+        with record_function(f"count:{name}:{n}"):
+            pass
 
 
 @contextlib.contextmanager

@@ -1,5 +1,5 @@
 """The port's small utilities against the JAX package's, on CPU:
-utils/observability.StepTimer and profile_trace, utils/util.ProgressBar,
+utils/observability.profile_trace, utils/util.ProgressBar,
 data/io.read_img_seq and get_image_paths (an image tree written here with
 cv2, and an LMDB written with the port's writer). Clocks are replaced by
 fixed sequences, so both packages see the same times; equality is exact.
@@ -14,33 +14,12 @@ import pytest
 import torch
 
 from dynavsr_tpu_torch.data.io import get_image_paths, read_img_seq
-from dynavsr_tpu_torch.utils.observability import StepTimer, profile_trace
+from dynavsr_tpu_torch.utils.observability import profile_trace
 from dynavsr_tpu_torch.utils.util import ProgressBar
-
-TIMES = [0.0, 0.5, 1.0, 1.25, 2.0, 4.0, 5.0, 5.125, 9.0, 9.5]
-
 
 def _clock(monkeypatch, name, values):
     it = iter(values)
     monkeypatch.setattr(time, name, lambda: next(it))
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """The same perf_counter readings give the same step times, EMA and
-    throughput (before the first tock too)."""
-    from dynavsr_tpu.utils.observability import StepTimer as JaxStepTimer
-
-    seen = {}
-    for name, cls in (("jax", JaxStepTimer), ("port", StepTimer)):
-        _clock(monkeypatch, "perf_counter", TIMES)
-        timer, rows = cls(ema=0.8), []
-        rows.append(timer.throughput(16))
-        for _ in range(len(TIMES) // 2):
-            timer.tick()
-            rows.append((timer.tock(), timer.avg, timer.throughput(16)))
-        seen[name] = rows
-    assert seen["port"] == seen["jax"]
-    assert seen["port"][0] == 0.0 and seen["port"][1][0] == 0.5
 
 
 @pytest.mark.parametrize("task_num", [0, 3])
